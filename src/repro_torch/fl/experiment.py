@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch import strategies as strategy_registry
-from repro_torch.channel.base import StaticChannel
 from repro_torch.configs import colrel_paper
+from repro_torch.configs.channels import CHANNEL_PRESETS, make_channel
 from repro_torch.core import topology
 from repro_torch.core.connectivity import LinkModel
 from repro_torch.core.weights import (
@@ -76,7 +76,9 @@ class ExperimentSpec:
     paper's T), ``rounds``, ``chunk``, ``segment_d`` (flat-dim threshold
     for segment-streaming aggregation; 0 = monolithic).
 
-    Channel: ``channel`` (preset name), ``adaptive``.
+    Channel: ``channel`` (a preset of
+    :data:`repro_torch.configs.channels.CHANNEL_PRESETS`: ``static``,
+    ``markov_iid``, ``markov``, ``markov_heavy``), ``adaptive``.
 
     Optimization (None = model-kind / paper defaults): ``lr``,
     ``weight_decay``, ``server_momentum``, ``batch_size``, ``seed``.
@@ -154,8 +156,9 @@ def _check_ported(spec: ExperimentSpec) -> None:
     if spec.chunk > 1:
         raise unported(f"chunk={spec.chunk} (the chunked multi-round engine)",
                        "item 8 (chunked engine)")
-    if spec.channel != "static":
-        raise unported(f"channel {spec.channel!r}", "item 9 (channels)")
+    preset = CHANNEL_PRESETS.get(spec.channel)
+    if preset is not None and preset.kind == "mobility":
+        raise unported(f"channel {spec.channel!r}", "item 9 (channels: mobility)")
     if spec.adaptive:
         raise unported("adaptive alpha re-optimization", "item 21 (adaptive alpha)")
     if spec.telemetry or spec.metrics_dir is not None or spec.profile_dir is not None:
@@ -281,7 +284,7 @@ def build_experiment(spec: ExperimentSpec, device=None) -> Experiment:
     _check_ported(spec)
     dev = resolve_device(device)
     link_model = _resolve_topology(spec)
-    channel = StaticChannel(link_model, seed=spec.seed)
+    channel = make_channel(spec.channel, link_model, seed=spec.seed)
     n = link_model.n
     strategy = strategy_registry.resolve(spec.strategy, **dict(spec.strategy_options))
     A, copt_result = _resolve_alpha(spec, link_model, strategy)

@@ -118,7 +118,8 @@ class FLTrainer:
         self.rc = RoundConfig(n_clients=n, local_steps=local_steps, mode=mode,
                               aggregation=self.strategy, segment_d=int(segment_d))
         self.server_state = server_opt.init(self.params)
-        self.agg_state = self.strategy.init_state(n, flatten.flat_spec(self.params).d)
+        self.agg_state = self.strategy.init_state(n, flatten.flat_spec(self.params).d,
+                                                  device=self.device)
         self._round_fn = make_round_fn(loss_fn, client_opt, server_opt, self.rc)
         self.round = 0
         self.log = TrainLog()

@@ -5,15 +5,20 @@
 //     out = (1/n) tau_up @ ((A * tau_dd^T) @ X)
 //   row_stream_pallas      (pallas_call at line 122) -> row_stream_kernel
 //     out = w @ X
-// X is an (n, d) row-major stack (f32 or bf16; row_stream also int8) and
-// out is (d,) f32.  Both kernels reduce X over its n rows with one weight
-// row while streaming the d columns, so every output column depends on its
-// own input column only.
+// and of src/repro/kernels/fused_dequant.py:
+//   fused_dequant_aggregate_pallas (pallas_call at line 90) -> fused_dequant_kernel
+//     out = ((1/n) tau_up @ (A * tau_dd^T) * scale^T) @ Q
+// X is an (n, d) row-major stack (f32 or bf16; row_stream also int8, and
+// the dequant kernel takes the int8 wire stack Q with one f32 scale per
+// row) and out is (d,) f32.  All three reduce the stack over its n rows
+// with one weight row while streaming the d columns, so every output
+// column depends on its own input column only.
 //
 // What bounds them: bytes.  X is read once and out written once: n*d*elt
 // + 4*d bytes against 2*n*d flops, far below the card's ~20 flops/byte
 // f32 ridge.  At the main path's n=10, d=272,282 f32 that is 11.98 MB,
-// 3.6 us at 3.35 TB/s.
+// 3.6 us at 3.35 TB/s; for the int8 stack of the quantized path 3.81 MB,
+// 1.14 us.
 //
 // What the design does about it:
 // * X crosses device memory exactly once.  Where the TPU kernel recomputes
@@ -38,32 +43,9 @@
 // Each launcher returns cudaGetLastError() so that a refused launch is
 // reported by the Python wrapper.  The kernels allocate nothing.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
-
-// V consecutive elements at p, widened to f32: one 16-byte load on the
-// vector path (V * sizeof(T) == 16, p 16-byte aligned), else one element.
-template <typename T, int V>
-__device__ __forceinline__ void load_cols(const T* __restrict__ p, float (&x)[V]) {
-  if constexpr (V * sizeof(T) == 16) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int k = 0; k < V; ++k) x[k] = to_f32(e[k]);
-  } else {
-    static_assert(V == 1, "the scalar path loads one element");
-    x[0] = to_f32(p[0]);
-  }
-}
 
 // out[c] = sum_j w[j] * x[j, c] over this block's columns
 // [blockIdx.x * block_d, min((blockIdx.x + 1) * block_d, d)).
@@ -99,6 +81,24 @@ __device__ __forceinline__ void weighted_rows(const float* __restrict__ w,
   }
 }
 
+// w_j = inv_n * sum_i tau_up[i] * (A[i, j] * tau_dd[j, i]), i in order,
+// then times scale[j] where a scale row is given.
+__device__ __forceinline__ void collapse_row(const float* __restrict__ A,
+                                             const float* __restrict__ tau_up,
+                                             const float* __restrict__ tau_dd,
+                                             const float* __restrict__ scale,
+                                             float* __restrict__ w, int n, float inv_n) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float s = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const float m = __fmul_rn(A[i * n + j], tau_dd[j * n + i]);
+      s = __fadd_rn(s, __fmul_rn(tau_up[i], m));
+    }
+    s = __fmul_rn(s, inv_n);
+    w[j] = scale ? __fmul_rn(s, scale[j]) : s;
+  }
+}
+
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 fused_aggregate_kernel(const float* __restrict__ A, const float* __restrict__ tau_up,
@@ -106,17 +106,24 @@ fused_aggregate_kernel(const float* __restrict__ A, const float* __restrict__ ta
                        float* __restrict__ out, int n, int64_t d, int64_t block_d,
                        float inv_n) {
   extern __shared__ float w[];
-  // w_j = inv_n * sum_i tau_up[i] * (A[i, j] * tau_dd[j, i]), i in order
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float s = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const float m = __fmul_rn(A[i * n + j], tau_dd[j * n + i]);
-      s = __fadd_rn(s, __fmul_rn(tau_up[i], m));
-    }
-    w[j] = __fmul_rn(s, inv_n);
-  }
+  collapse_row(A, tau_up, tau_dd, nullptr, w, n, inv_n);
   __syncthreads();
   weighted_rows<T, V>(w, x, out, n, d, block_d);
+}
+
+// The quantized path's twin: the per-row dequant scales fold into the
+// weight row in shared memory (ws_j = w_j * scale_j), so the int8 stack is
+// read as it is and no f32 stack exists.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+fused_dequant_kernel(const float* __restrict__ A, const float* __restrict__ tau_up,
+                     const float* __restrict__ tau_dd, const float* __restrict__ scale,
+                     const int8_t* __restrict__ q, float* __restrict__ out, int n,
+                     int64_t d, int64_t block_d, float inv_n) {
+  extern __shared__ float w[];
+  collapse_row(A, tau_up, tau_dd, scale, w, n, inv_n);
+  __syncthreads();
+  weighted_rows<int8_t, V>(w, q, out, n, d, block_d);
 }
 
 template <typename T, int V>
@@ -127,17 +134,6 @@ row_stream_kernel(const float* __restrict__ w_in, const T* __restrict__ x,
   for (int j = threadIdx.x; j < n; j += blockDim.x) w[j] = w_in[j];
   __syncthreads();
   weighted_rows<T, V>(w, x, out, n, d, block_d);
-}
-
-// Rows of x are 16-byte aligned when the base is and a row is a whole
-// number of 16-byte words.
-template <typename T>
-bool rows_aligned(const void* x, int64_t d) {
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && (d * static_cast<int64_t>(sizeof(T))) % 16 == 0;
-}
-
-dim3 grid_for(int64_t d, int64_t block_d) {
-  return dim3(static_cast<unsigned>((d + block_d - 1) / block_d));
 }
 
 template <typename T>
@@ -171,6 +167,19 @@ cudaError_t launch_row_stream(const float* w, const void* x, float* out, int n, 
   return cudaGetLastError();
 }
 
+cudaError_t launch_dequant(const float* A, const float* tau_up, const float* tau_dd,
+                           const float* scale, const int8_t* q, float* out, int n, int64_t d,
+                           int64_t block_d, float inv_n, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  if (rows_aligned<int8_t>(q, d))
+    fused_dequant_kernel<16><<<grid_for(d, block_d), kThreads, smem, stream>>>(
+        A, tau_up, tau_dd, scale, q, out, n, d, block_d, inv_n);
+  else
+    fused_dequant_kernel<1><<<grid_for(d, block_d), kThreads, smem, stream>>>(
+        A, tau_up, tau_dd, scale, q, out, n, d, block_d, inv_n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Element type codes shared with kernels/fused_aggregate.py.
@@ -196,6 +205,14 @@ extern "C" int repro_row_stream(const float* w, const void* x, float* out, int n
     case kI8: return launch_row_stream<int8_t>(w, x, out, n, d, block_d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+extern "C" int repro_fused_dequant_aggregate(const float* A, const float* tau_up,
+                                             const float* tau_dd, const float* scale,
+                                             const int8_t* q, float* out, int n, int64_t d,
+                                             int64_t block_d, float inv_n, void* stream) {
+  return launch_dequant(A, tau_up, tau_dd, scale, q, out, n, d, block_d, inv_n,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -1,9 +1,11 @@
-"""Aggregation strategies: the protocol, the registry, and the paper's
-ColRel with its FedAvg baselines.  Importing this package registers them::
+"""Aggregation strategies: the protocol, the registry, the paper's ColRel
+with its FedAvg baselines, the replay-buffer ``memory`` scheme and the
+codec-wrapped ``quantized`` scheme.  Importing this package registers
+them::
 
     from repro_torch import strategies
 
-    strategies.available()   # ('colrel', 'fedavg_blind', ...)
+    strategies.available()   # ('colrel', 'fedavg_blind', ..., 'memory', 'quantized')
     s = strategies.get("colrel", fused="kernel")
 """
 
@@ -15,6 +17,8 @@ from repro_torch.strategies.classic import (
     FedAvgNonBlind,
     FedAvgPerfect,
 )
+from repro_torch.strategies.memory import MemoryStrategy
+from repro_torch.strategies.quantized import QuantizedStrategy
 
 __all__ = [
     "AggregationStrategy",
@@ -27,4 +31,6 @@ __all__ = [
     "FedAvgBlind",
     "FedAvgNonBlind",
     "FedAvgPerfect",
+    "MemoryStrategy",
+    "QuantizedStrategy",
 ]

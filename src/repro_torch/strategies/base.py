@@ -21,6 +21,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.core import flatten
 
 __all__ = ["AggregationStrategy", "ExecutionContext"]
 
@@ -55,8 +56,9 @@ class AggregationStrategy:
     #: whether ``weights`` is available (delta == w @ updates exactly)
     scalar_collapsible: bool = False
 
-    def init_state(self, n: int, d: int) -> State:
-        """Initial carried state for ``n`` clients and flat dim ``d``."""
+    def init_state(self, n: int, d: int, *, device=None) -> State:
+        """Initial carried state for ``n`` clients and flat dim ``d``, with
+        any tensors on ``device``."""
         return ()
 
     def wire_bits_per_coord(self, d: int) -> float:
@@ -86,16 +88,15 @@ class AggregationStrategy:
                        A: torch.Tensor, state: State,
                        ctx: ExecutionContext) -> Tuple[Any, State]:
         """Tree path for stacked per-client update trees (leading axis
-        ``n``): leaf-wise scalar weighting.  Every strategy of this package
-        collapses; the reference's flatten-once path for those that do not
-        comes with them."""
-        del ctx
+        ``n``): leaf-wise scalar weighting when collapsible, else the
+        flatten-once dense-stack path through :meth:`aggregate`."""
         w = self.weights(tau_up, tau_dd, A)
-        if w is None:
-            raise NotImplementedError(
-                f"{type(self).__name__} is not scalar-collapsible and must "
-                "override aggregate_tree()")
-        return tree.map(lambda D: torch.tensordot(w, D, dims=1), deltas), state
+        if w is not None:
+            return tree.map(lambda D: torch.tensordot(w, D, dims=1), deltas), state
+        spec = flatten.flat_spec(deltas, stacked=True)
+        stack = flatten.ravel_stacked(deltas, dtype=ctx.flat_dtype)
+        gflat, state = self.aggregate(stack, tau_up, tau_dd, A, state)
+        return flatten.unravel(spec, gflat, dtype=torch.float32), state
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(name={self.name!r})"

@@ -4,13 +4,16 @@ there with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerance atol 1e-5 + rtol 1e-5 (f32 accumulation, and bf16/int8 widened
 exactly to f32).  The kernels run the plain versions' arithmetic in the
-same order, so in practice they agree to the bit.
+same order, so in practice they agree to the bit; segmented memory runs
+are held to the monolithic kernel at 0.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import fused_aggregate as fa
+from repro_torch.kernels import fused_dequant as fdq
+from repro_torch.kernels import fused_memory as fm
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.cuda
@@ -89,3 +92,77 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.fused_aggregate_cuda(A[:3, :3], tau_up, tau_dd, X)
     with pytest.raises(ValueError, match="block_d"):
         fa.row_stream_cuda(tau_up, X, block_d=100)
+
+
+@pytest.mark.parametrize("n", [4, 10, 33])
+@pytest.mark.parametrize("d", [1, 1000, 4099, 272282])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_memory_update_kernel_matches_plain(dev, n, d, dtype):
+    A, tau_up, tau_dd, X = _round(n, d, dtype, dev, seed=3 * n + d)
+    B = torch.randn(n, d, generator=torch.Generator().manual_seed(d)).to(dev)
+    B_plain = B.clone()
+    before = fm.fused_memory_update_cuda.launches
+    got, got_buf = fm.fused_memory_update_cuda(A, tau_up, tau_dd, X, B)
+    want, want_buf = fm.fused_memory_update_plain(A, tau_up, tau_dd, X, B_plain)
+    torch.cuda.synchronize()
+    assert fm.fused_memory_update_cuda.launches == before + 1
+    assert got_buf is B and got.shape == (d,) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(got_buf, want_buf, **TOL)
+
+
+@pytest.mark.parametrize("n", [4, 10, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_memory_stream_kernel_writes_strided_buffer_columns(dev, n, dtype):
+    """Per-segment kernel passes into column views of one buffer equal the
+    monolithic kernel, delta and buffer, bitwise."""
+    d = 5003
+    A, tau_up, tau_dd, X = _round(n, d, dtype, dev, seed=n)
+    B = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).to(dev)
+    mono, mono_buf = fm.fused_memory_update_cuda(A, tau_up, tau_dd, X, B.clone())
+    mix = ops.mixing_mask(A, tau_dd)
+    buf, plain_buf = B.clone(), B.clone()
+    cuts = [0, 10, 17, 2048, 4096, d]
+    parts, plain_parts = [], []
+    for a, b in zip(cuts, cuts[1:]):
+        seg = X[:, a:b].contiguous()
+        delta, view = fm.memory_stream_cuda(mix, tau_up, seg, buf[:, a:b])
+        assert view.data_ptr() == buf[:, a:b].data_ptr()
+        parts.append(delta)
+        plain_parts.append(fm.memory_stream_plain(mix, tau_up, seg, plain_buf[:, a:b])[0])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts), mono) and torch.equal(buf, mono_buf)
+    torch.testing.assert_close(torch.cat(parts), torch.cat(plain_parts), **TOL)
+    torch.testing.assert_close(buf, plain_buf, **TOL)
+
+
+def test_memory_wrappers_reject_what_the_kernels_do_not_take(dev):
+    A, tau_up, tau_dd, X = _round(4, 64, torch.float32, dev, seed=5)
+    B = torch.zeros(4, 64, device=dev)
+    with pytest.raises(TypeError):
+        fm.fused_memory_update_cuda(A, tau_up, tau_dd, X, B.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.memory_stream_cuda(ops.mixing_mask(A, tau_dd), tau_up, X, B.t().contiguous().t())
+    with pytest.raises(ValueError, match="n <= 109"):
+        big = torch.zeros(110, 8, device=dev)
+        fm.fused_memory_update_cuda(torch.zeros(110, 110, device=dev),
+                                    torch.zeros(110, device=dev),
+                                    torch.zeros(110, 110, device=dev), big, big.clone())
+
+
+@pytest.mark.parametrize("n", [4, 10, 33])
+@pytest.mark.parametrize("d", [1, 1000, 4099, 272282])
+def test_fused_dequant_kernel_matches_plain(dev, n, d):
+    A, tau_up, tau_dd, q = _round(n, d, torch.int8, dev, seed=5 * n + d)
+    scale = torch.rand(n, 1, generator=torch.Generator().manual_seed(n)).to(dev) / 40
+    before = fdq.fused_dequant_aggregate_cuda.launches
+    got = fdq.fused_dequant_aggregate_cuda(A, tau_up, tau_dd, q, scale)
+    want = fdq.fused_dequant_aggregate_plain(A, tau_up, tau_dd, q, scale)
+    torch.cuda.synchronize()
+    assert fdq.fused_dequant_aggregate_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    # the segment path folds the same scales once and streams int8 columns
+    ws = ops.fold_dequant_scales(ops.collapsed_weight_row(A, tau_up, tau_dd), scale)
+    cuts = sorted({0, min(d, 10), d})
+    parts = [ops.dequant_row_stream(ws, q[:, a:b].contiguous()) for a, b in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(parts), got)
