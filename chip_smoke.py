@@ -14,8 +14,12 @@ each of which fails the run by raising:
 3. kernels against their plain PyTorch versions on the card, at the
    shapes of the main path and at off-grid ones: the ColRel aggregation
    kernels, the memory strategy's kernels (segment passes writing into
-   strided views of one buffer, held to the monolithic kernel at 0) and
-   the int8 dequant kernel;
+   strided views of one buffer, held to the monolithic kernel at 0), the
+   int8 dequant kernel, and bitwise: the clustered kernels (block relay
+   mix, block aggregation, block row stream) up to n = 16,384 as 256
+   clusters of 64, the dense relay mix, the clustered kernels at C = 1
+   against the dense ones, and block segments against the monolithic
+   pass;
 4. the main path at full width: three rounds of the paper's ColRel CNN
    experiment (cifar_cnn_full) through the fused kernel, again through the
    segment-streaming kernel and again through the collapse path, with the
@@ -23,7 +27,16 @@ each of which fails the run by raising:
    then the quadratic task on the card against the port's CPU path; then
    three rounds of the memory strategy under bursty (Markov) blockage and
    of the int8 quantized strategy, each through its kernel, its segment
-   and its plain (fused=False) path, launches read around each run;
+   and its plain (fused=False) path, launches read around each run; the
+   relay mixes through their entry points (ops.relay_mix at the kernel
+   benchmark's n=16, d=2^20, ops.block_relay_mix on cifar_cnn_full
+   deltas); three rounds of clustered relaying of cifar_cnn_full (n=10 as
+   2 clusters of 5, an FLTrainer given a clustered channel and per-cluster
+   COPT-alpha weights) through the block kernel, the block segments, the
+   collapse and the faithful path, and once more through the kernel under
+   clustered bursty blockage; and three rounds of the population path
+   (n=1024 as 64 clusters of 16, the D=64 quadratic), kernel against
+   fused=False;
 5. times of each kernel at the main path's shapes beside its bound, its
    plain version and one PyTorch call computing the same product where
    there is one;
@@ -54,6 +67,9 @@ ROUNDS = 3
 # One aggregation of the same stacked deltas: the kernel, segmented, collapse
 # and faithful paths differ only in f32 summation order.
 AGG_ATOL = 1e-6
+# The population path (n=1024, the D=64 quadratic, no convolutions) after 3
+# rounds, kernel vs fused=False: 1024-term f32 sums in two orders.
+POP_ATOL = 1e-5
 # Params after 3 rounds: last-bit differences between the paths' deltas are
 # amplified by training with TF32 convolutions (cuDNN's default); the
 # segmented run repeats the kernel's arithmetic and is expected to be equal.
@@ -118,6 +134,8 @@ def main():
     from repro_torch.kernels import fused_dequant as fdq
     from repro_torch.kernels import fused_memory as fm
     from repro_torch.kernels import ops
+    from repro_torch.kernels import relay_block as rb
+    from repro_torch.kernels import relay_mix as rm
     from repro_torch.models.cnn import CNN
 
     dev = torch.device("cuda")
@@ -165,7 +183,9 @@ def main():
         return float(e.max())
 
     max_err = dict.fromkeys(("fused_aggregate", "row_stream", "fused_memory_update",
-                             "memory_stream", "fused_dequant_aggregate"), 0.0)
+                             "memory_stream", "fused_dequant_aggregate", "relay_mix",
+                             "block_relay_mix", "block_fused_aggregate", "block_row_stream"),
+                            0.0)
     for dtype in (torch.float32, torch.bfloat16):
         for n_ in (4, 10, 33):
             for d_ in (1, 1000, 4099, d_full):
@@ -240,14 +260,107 @@ def main():
                     fdq.fused_dequant_aggregate_plain(A, tau_up, tau_dd, q, scale))
             max_err["fused_dequant_aggregate"] = max(max_err["fused_dequant_aggregate"], e)
             print(f"[kernels] fused_dequant_aggregate int8 n={n_} d={d_} max_abs_err={e:.3e}")
+
+    # the clustered kernels and the dense relay mix, held bitwise (tolerance
+    # 0): they run their plain versions' arithmetic in the same order
+    def block_inputs(C, m, d_, dtype):
+        Ab = (torch.rand(C, m, m, generator=g) * 0.5 + 0.1).to(dev)
+        tau_up = (torch.rand(C * m, generator=g) < 0.7).float().to(dev)
+        tau_b = (torch.rand(C, m, m, generator=g) < 0.5).float().to(dev)
+        return Ab, tau_up, tau_b, torch.randn(C * m, d_, generator=g).to(dtype).to(dev)
+
+    def exact(name, got, want, what):
+        check(got.shape == want.shape and got.dtype == want.dtype, f"{name} {what}: shape/dtype")
+        e = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want), f"{name} {what}: differs from its plain version by {e}")
+        max_err[name] = max(max_err[name], e)
+        return e
+
+    def block_kernels(C, m, d_, dtype):
+        Ab, tau_up, tau_b, X = block_inputs(C, m, d_, dtype)
+        what = f"{str(dtype)[6:]} C={C} m={m} n={C * m} d={d_}"
+        e = exact("block_relay_mix", rb.block_relay_mix_cuda(Ab, tau_b, X),
+                  rb.block_relay_mix_plain(Ab, tau_b, X), what)
+        agg = rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X)
+        e = max(e, exact("block_fused_aggregate", agg,
+                         rb.block_fused_aggregate_plain(Ab, tau_up, tau_b, X), what))
+        w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+        seg = rb.block_row_stream_cuda(w, X)
+        e = max(e, exact("block_row_stream", seg, rb.block_row_stream_plain(w, X), what))
+        check(torch.equal(seg, agg), f"block_row_stream vs block_fused_aggregate {what}")
+        print(f"[kernels] block_relay_mix, block_fused_aggregate, block_row_stream {what} "
+              f"max_abs_err={e:.3e}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, m in ((1, 4), (1, 10), (2, 5), (1, 33), (3, 11), (64, 16)):
+            for d_ in (1, 1000, 4099, d_full):
+                block_kernels(C, m, d_, dtype)
+        block_kernels(256, 64, 4099, dtype)  # n = 16,384: the reference's largest population
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_ in (4, 10, 16, 33):
+            for d_ in (1, 1000, 4099, d_full):
+                M = torch.randn(n_, n_, generator=g).to(dev)
+                X = torch.randn(n_, d_, generator=g).to(dtype).to(dev)
+                e = exact("relay_mix", rm.relay_mix_cuda(M, X), rm.relay_mix_plain(M, X),
+                          f"{str(dtype)[6:]} n={n_} d={d_}")
+                print(f"[kernels] relay_mix {str(dtype)[6:]} n={n_} d={d_} max_abs_err={e:.3e}")
+        M = torch.randn(16, 16, generator=g).to(dev)
+        X = torch.randn(16, 2**20, generator=g).to(dtype).to(dev)
+        e = exact("relay_mix", rm.relay_mix_cuda(M, X), rm.relay_mix_plain(M, X),
+                  f"{str(dtype)[6:]} n=16 d=2^20")
+        print(f"[kernels] relay_mix {str(dtype)[6:]} n=16 d=2^20 (the kernel benchmark's shape) "
+              f"max_abs_err={e:.3e}")
+    # one cluster is the dense population: kernels 8, 9, 7 equal kernels 1, 2, 3
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_ in (4, 10, 33):
+            for d_ in (1, 1000, 4099, d_full):
+                A, tau_up, tau_dd, X = inputs(n_, d_, dtype)
+                w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+                mix = ops.mixing_mask(A, tau_dd)
+                for name, got, want in (
+                        ("block_fused_aggregate vs fused_aggregate",
+                         rb.block_fused_aggregate_cuda(A[None], tau_up, tau_dd[None], X),
+                         fa.fused_aggregate_cuda(A, tau_up, tau_dd, X)),
+                        ("block_row_stream vs row_stream",
+                         rb.block_row_stream_cuda(w.reshape(1, n_), X), fa.row_stream_cuda(w, X)),
+                        ("block_relay_mix vs relay_mix",
+                         rb.block_relay_mix_cuda(A[None], tau_dd[None], X),
+                         rm.relay_mix_cuda(mix, X))):
+                    check(torch.equal(got, want), f"C=1 {name} {str(dtype)[6:]} n={n_} d={d_}")
+    print("[kernels] C=1: block_fused_aggregate == fused_aggregate, block_row_stream == "
+          "row_stream, block_relay_mix == relay_mix, bitwise, at n in (4, 10, 33), "
+          f"d in (1, 1000, 4099, {d_full}), f32 and bf16")
+    # the 61 cifar_cnn_full segments through block_row_stream against the
+    # monolithic block_fused_aggregate, n=10 as 2 clusters of 5
+    for dtype in (torch.float32, torch.bfloat16):
+        Ab, tau_up, tau_b, X = block_inputs(2, 5, d_full, dtype)
+        w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+        segs = torch.cat([rb.block_row_stream_cuda(w, s_.contiguous())
+                          for s_ in X.split(full_sizes, dim=1)])
+        check(torch.equal(segs, rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X)),
+              f"block segments vs monolithic {dtype}")
+        print(f"[kernels] block_row_stream {str(dtype)[6:]} over the 61 segments == "
+              f"block_fused_aggregate at n=10 (C=2, m=5) d={d_full}: bitwise")
     torch.cuda.synchronize()
 
     # -- 4. the main path at full width ------------------------------------
     # one aggregation of cifar_cnn_full-shaped client deltas through every path
+    import numpy as np
+
     from repro_torch import strategies
-    from repro_torch.channel.base import StaticChannel
+    from repro_torch.channel import (
+        ClusteredMarkovChannel,
+        ClusteredStaticChannel,
+        StaticChannel,
+        gilbert_elliott_clustered,
+    )
+    from repro_torch.core import blocks as core_blocks
     from repro_torch.core import topology
-    from repro_torch.core.weights import optimize_weights
+    from repro_torch.core.weights import optimize_weights, optimize_weights_clustered
+    from repro_torch.data.pipeline import ClientDataset
+    from repro_torch.fl.experiment import Experiment, build_task
+    from repro_torch.fl.trainer import FLTrainer
+    from repro_torch.optim import sgd, sgd_momentum
     from repro_torch.strategies.base import ExecutionContext
     fig2b = topology.paper_fig2b()
     A = torch.as_tensor(optimize_weights(fig2b, sweeps=30, fine_tune_sweeps=30).A,
@@ -290,22 +403,67 @@ def main():
         check(diff <= atol, f"one aggregation, {what}, kernel vs {label}: {diff}")
         print(f"[main] one aggregation of cifar_cnn_full deltas, {what}, kernel vs {label}: "
               f"max_abs_diff={diff:.3e} (atol {atol})")
-    del deltas, agg, mem, quant, buf0
+    # clustered relaying of the same deltas: n=10 as 2 clusters of 5, the
+    # topology arguments of the reference's shard benchmark, per-cluster
+    # COPT-alpha weights
+    cmodel = topology.clustered_blocks(n, 0.5, 5, p_intra=0.8, rho=1.0)
+    cAb_np = optimize_weights_clustered(cmodel, sweeps=30, fine_tune_sweeps=30).Ab
+    cAb = torch.as_tensor(cAb_np, dtype=torch.float32, device=dev)
+    ctu, ctb = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+                for t in ClusteredStaticChannel(cmodel, seed=0).tau_for_round(0))
+    cagg = {label: tree.leaves(strategies.get("clustered", fused=fused).aggregate_tree(
+        deltas, ctu, ctb, cAb, (), c)[0])
+        for label, fused, c in (("kernel", "kernel", ctx), ("segmented", "kernel", seg_ctx),
+                                ("collapse", "collapse", ctx), ("faithful", False, ctx))}
+    for label, atol in (("segmented", 0.0), ("collapse", AGG_ATOL), ("faithful", AGG_ATOL)):
+        diff = max(float((a - b).abs().max()) for a, b in zip(cagg["kernel"], cagg[label]))
+        check(diff <= atol, f"one clustered aggregation, kernel vs {label}: {diff}")
+        print(f"[main] one clustered aggregation of cifar_cnn_full deltas (C=2, m=5), kernel vs "
+              f"{label}: max_abs_diff={diff:.3e} (atol {atol})")
+
+    # kernels 3 and 7 are reached through their entry points ops.relay_mix
+    # and ops.block_relay_mix: each driven once, its count set to 0 just
+    # before and read just after
+    stack = flatten.ravel_stacked(deltas)
+    M16 = torch.randn(16, 16, generator=g).to(dev)
+    X16 = torch.randn(16, 2**20, generator=g).to(dev)
+    rm.relay_mix_cuda.launches = rb.block_relay_mix_cuda.launches = 0
+    mixed16 = ops.relay_mix(M16, X16)
+    cmixed = ops.block_relay_mix(cAb, ctb, stack)
+    mix_launches = {"relay_mix": rm.relay_mix_cuda.launches,
+                    "block_relay_mix": rb.block_relay_mix_cuda.launches}
+    check(mix_launches == {"relay_mix": 1, "block_relay_mix": 1},
+          f"relay-mix entry points launched {mix_launches}")
+    check(torch.equal(mixed16, rm.relay_mix_plain(M16, X16)), "ops.relay_mix vs its plain version")
+    diff = float((cmixed - core_blocks.block_relay_mix(stack, cAb, ctb)).abs().max())
+    check(diff <= AGG_ATOL and cmixed.shape == stack.shape,
+          f"ops.block_relay_mix vs core.blocks.block_relay_mix: {diff}")
+    print(f"[main] ops.relay_mix at n=16 d=2^20 and ops.block_relay_mix on the cifar_cnn_full "
+          f"stack (C=2, m=5): launches {mix_launches}; block relay mix vs core.blocks "
+          f"max_abs_diff={diff:.3e} (atol {AGG_ATOL})")
+    del deltas, agg, mem, quant, buf0, cagg, stack, cmixed, mixed16
 
     wrappers = {"fused_aggregate": fa.fused_aggregate_cuda, "row_stream": fa.row_stream_cuda,
                 "fused_memory_update": fm.fused_memory_update_cuda,
                 "memory_stream": fm.memory_stream_cuda,
-                "fused_dequant_aggregate": fdq.fused_dequant_aggregate_cuda}
+                "fused_dequant_aggregate": fdq.fused_dequant_aggregate_cuda,
+                "relay_mix": rm.relay_mix_cuda, "block_relay_mix": rb.block_relay_mix_cuda,
+                "block_fused_aggregate": rb.block_fused_aggregate_cuda,
+                "block_row_stream": rb.block_row_stream_cuda}
 
-    def drive(label, strategy, options, segment_d, *, channel="static", expect):
+    def drive(label, strategy, options, segment_d, *, channel="static", expect, make=None,
+              layout=(N_LEAVES, D_FULL)):
         """Three rounds of one path with every launch count set to 0 just
         before and read just after; ``expect`` names the kernels the path
-        must have launched and how often, every other count must be 0."""
+        must have launched and how often, every other count must be 0.
+        The path is a cifar_cnn_full experiment, or the experiment ``make``
+        builds; its params must be ``layout`` (leaves, d) finite CUDA
+        tensors."""
         for w in wrappers.values():
             w.launches = 0
-        exp = build_experiment(ExperimentSpec(model="cifar_cnn_full", strategy=strategy,
-                                              strategy_options=options, segment_d=segment_d,
-                                              channel=channel))
+        exp = make() if make is not None else build_experiment(ExperimentSpec(
+            model="cifar_cnn_full", strategy=strategy, strategy_options=options,
+            segment_d=segment_d, channel=channel))
         secs = []
         for _ in range(ROUNDS):
             t = time.perf_counter()
@@ -317,9 +475,9 @@ def main():
         loss = exp.log.loss
         check(all(math.isfinite(v) for v in loss), f"{label}: non-finite loss {loss}")
         leaves = tree.leaves(exp.params)
-        check(len(leaves) == N_LEAVES and sum(x.numel() for x in leaves) == d_full
+        check(len(leaves) == layout[0] and sum(x.numel() for x in leaves) == layout[1]
               and all(bool(torch.isfinite(x).all()) and x.is_cuda for x in leaves),
-              f"{label}: params are not {N_LEAVES} finite CUDA leaves of d={d_full}")
+              f"{label}: params are not {layout[0]} finite CUDA leaves of d={layout[1]}")
         launched = {k: v for k, v in counts.items() if v}
         print(f"[main] {label}: {strategy} {options} segment_d={segment_d} channel={channel}: "
               f"loss={loss} participation={exp.log.participation} "
@@ -392,6 +550,76 @@ def main():
           f"quantized uplink_bits {q_exp.log.uplink_bits}")
     print("[main] quantized segmented draws another codec realization: held to finite params, "
           "the kernel path's participation and uplink_bits (8 + 32/d bits per coordinate)")
+
+    # clustered relaying at full width: an FLTrainer given the clustered
+    # channel and the (C, m, m) weights, as the reference's shard benchmark
+    # enters the path
+    def clustered_exp(fused, segment_d, channel):
+        spec = ExperimentSpec(model="cifar_cnn_full")
+        loss_fn, init, clients, client_opt, server_opt, steps, _ = build_task(spec, n)
+        strategy = strategies.get("clustered", fused=fused)
+        trainer = FLTrainer(loss_fn, init, None, cAb_np, clients, client_opt, server_opt,
+                            local_steps=steps, strategy=strategy, channel=channel,
+                            segment_d=segment_d)
+        return Experiment(spec=spec, trainer=trainer, link_model=cmodel, A=cAb_np,
+                          strategy=strategy)
+
+    cl_runs = {}
+    for label, fused, segment_d, expect in (
+            ("kernel", "kernel", 0, {"block_fused_aggregate": ROUNDS}),
+            ("segmented", "kernel", 1, {"block_row_stream": ROUNDS * N_LEAVES}),
+            ("collapse", "collapse", 0, {}), ("plain", False, 0, {})):
+        cl_runs[label] = drive(
+            f"clustered {label}", "clustered", {"fused": fused}, segment_d,
+            channel="ClusteredStaticChannel", expect=expect,
+            make=lambda f=fused, sd=segment_d: clustered_exp(
+                f, sd, ClusteredStaticChannel(cmodel, seed=0)))
+    bfa_launches = cl_runs["kernel"][1]["block_fused_aggregate"]
+    brs_launches = cl_runs["segmented"][1]["block_row_stream"]
+    compare("clustered kernel", cl_runs["kernel"][0],
+            (("segmented", cl_runs["segmented"][0], 0.0),
+             ("collapse", cl_runs["collapse"][0], PARAM_ATOL),
+             ("fused=False", cl_runs["plain"][0], PARAM_ATOL)))
+    cl_markov, _ = drive(
+        "clustered kernel markov", "clustered", {"fused": "kernel"}, 0,
+        channel="ClusteredMarkovChannel(memory=0.9)", expect={"block_fused_aggregate": ROUNDS},
+        make=lambda: clustered_exp("kernel", 0, ClusteredMarkovChannel(
+            gilbert_elliott_clustered(cmodel, memory=0.9), seed=0)))
+
+    # the population path, the reference shard benchmark's gate point:
+    # n=1024 as 64 clusters of 16, the D=64 quadratic, one local SGD step
+    P_N, P_M, P_D = 1024, 16, 64
+    pmodel = topology.clustered_blocks(P_N, 0.5, P_M, p_intra=0.8, rho=1.0)
+    # every cluster of clustered_blocks is identical: one per-cluster
+    # COPT-alpha solve serves all 64 blocks
+    pres = optimize_weights(pmodel.cluster_model(0), sweeps=10, fine_tune_sweeps=5)
+    pAb = np.broadcast_to(pres.A.astype(np.float32), (pmodel.C, P_M, P_M)).copy()
+    H = torch.as_tensor(np.diag(np.linspace(1.0, 8.0, P_D)).astype(np.float32), device=dev)
+
+    def quad_loss(params, batch):
+        r = params["x"] - batch["t"][0]
+        return 0.5 * r @ (H @ r), {}
+
+    def population_exp(fused):
+        rng = np.random.default_rng(7)
+        clients = [ClientDataset({"t": rng.normal(size=(ROUNDS, P_D)).astype(np.float32)},
+                                 batch_size=1, seed=i) for i in range(P_N)]
+        strategy = strategies.get("clustered", fused=fused)
+        trainer = FLTrainer(quad_loss, {"x": torch.zeros(P_D, device=dev)}, None, pAb, clients,
+                            sgd(0.1), sgd_momentum(1.0, beta=0.9), local_steps=1,
+                            strategy=strategy,
+                            channel=ClusteredStaticChannel(pmodel, seed=0, block=ROUNDS))
+        return Experiment(spec=ExperimentSpec(model="quadratic"), trainer=trainer,
+                          link_model=pmodel, A=pAb, strategy=strategy)
+
+    pop_k, _ = drive("population kernel", "clustered", {"fused": "kernel"}, 0,
+                     channel="ClusteredStaticChannel n=1024 C=64 m=16",
+                     expect={"block_fused_aggregate": ROUNDS},
+                     make=lambda: population_exp("kernel"), layout=(1, P_D))
+    pop_p, _ = drive("population plain", "clustered", {"fused": False}, 0,
+                     channel="ClusteredStaticChannel n=1024 C=64 m=16", expect={},
+                     make=lambda: population_exp(False), layout=(1, P_D))
+    compare("population kernel", pop_k, (("fused=False", pop_p, POP_ATOL),))
 
     # a small input against the port's CPU path (plain versions, no TF32)
     small = ExperimentSpec(model="quadratic", strategy="colrel", strategy_options={"fused": "kernel"})
@@ -502,12 +730,72 @@ def main():
                      launches=fdq_launches, max_abs_err=max_err["fused_dequant_aggregate"],
                      bound_by="bytes", **fdq_times))
 
+    # the clustered kernels at the clustered cifar_cnn_full path's shapes
+    # (n=10 as 2 clusters of 5), and the dense relay mix at the kernel
+    # benchmark's (n=16, d=2^20): every X read once, every output written once
+    cAb = cl_runs["kernel"][0].trainer.A
+    ctu, ctb = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+                for t in cl_runs["kernel"][0].trainer.channel.tau_for_round(0))
+    Cc, mc = cmodel.C, cmodel.m
+    wb = ops.block_collapsed_weight_row(cAb, ctu, ctb)
+    wflat = wb.reshape(-1)
+    block_small = 4 * (2 * n * mc + n)  # Ab, tau_b, tau_up
+    bfa_times = dict(
+        ms=median_ms(lambda: rb.block_fused_aggregate_cuda(cAb, ctu, ctb, X), flush, 100),
+        plain_ms=median_ms(lambda: rb.block_fused_aggregate_plain(cAb, ctu, ctb, X), flush, 30),
+        library_ms=median_ms(lambda: torch.matmul(wflat, X), flush, 100),
+        bound_ms=bound_ms(block_small + 4 * n * d_full + 4 * d_full,
+                          2 * n * d_full + 3 * n * mc))
+    rows.append(dict(name="block_fused_aggregate", route="cuda",
+                     source="src/repro_torch/kernels/csrc/relay_block.cu",
+                     replaces="src/repro/kernels/relay_block.py:113",
+                     launches=bfa_launches, max_abs_err=max_err["block_fused_aggregate"],
+                     bound_by="bytes", **bfa_times))
+    brs_times = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for s_ in segs:
+        brs_times["ms"] += median_ms(lambda: rb.block_row_stream_cuda(wb, s_), flush, 30)
+        brs_times["plain_ms"] += median_ms(lambda: rb.block_row_stream_plain(wb, s_), flush, 10)
+        brs_times["library_ms"] += median_ms(lambda: torch.matmul(wflat, s_), flush, 30)
+        brs_times["bound_ms"] += bound_ms(4 * n + 4 * n * s_.shape[1] + 4 * s_.shape[1],
+                                          2 * n * s_.shape[1])
+    rows.append(dict(name="block_row_stream", route="cuda",
+                     source="src/repro_torch/kernels/csrc/relay_block.cu",
+                     replaces="src/repro/kernels/relay_block.py:171",
+                     launches=brs_launches, max_abs_err=max_err["block_row_stream"],
+                     bound_by="bytes", **brs_times))
+    Mb = rb.block_mixing_mask(cAb, ctb)
+    brm_times = dict(
+        ms=median_ms(lambda: rb.block_relay_mix_cuda(cAb, ctb, X), flush, 100),
+        plain_ms=median_ms(lambda: rb.block_relay_mix_plain(cAb, ctb, X), flush, 30),
+        library_ms=median_ms(lambda: torch.bmm(Mb, X.view(Cc, mc, d_full)), flush, 100),
+        bound_ms=bound_ms(8 * n * mc + 8 * n * d_full, 2 * n * mc * d_full))
+    rows.append(dict(name="block_relay_mix", route="cuda",
+                     source="src/repro_torch/kernels/csrc/relay_block.cu",
+                     replaces="src/repro/kernels/relay_block.py:53",
+                     launches=mix_launches["block_relay_mix"],
+                     max_abs_err=max_err["block_relay_mix"], bound_by="bytes", **brm_times))
+    rmx_times = dict(
+        ms=median_ms(lambda: rm.relay_mix_cuda(M16, X16), flush, 100),
+        plain_ms=median_ms(lambda: rm.relay_mix_plain(M16, X16), flush, 30),
+        library_ms=median_ms(lambda: torch.matmul(M16, X16), flush, 100),
+        bound_ms=bound_ms(4 * 16 * 16 + 8 * 16 * 2**20, 2 * 16 * 16 * 2**20))
+    rows.append(dict(name="relay_mix", route="cuda",
+                     source="src/repro_torch/kernels/csrc/relay_block.cu",
+                     replaces="src/repro/kernels/relay_mix.py:43",
+                     launches=mix_launches["relay_mix"], max_abs_err=max_err["relay_mix"],
+                     bound_by="bytes", **rmx_times))
+
     whats = {
         "fused_aggregate": "one launch, n=10 d=272282 f32",
         "row_stream": "sum over the 61 segments of one round, n=10 f32",
         "fused_memory_update": "one launch, n=10 d=272282 f32 stack and buffer",
         "memory_stream": "sum over the 61 segments of one round, n=10 f32, strided buffer views",
         "fused_dequant_aggregate": "one launch, n=10 d=272282 int8",
+        "block_fused_aggregate": "one launch (collapse, then stream), n=10 as C=2 m=5, "
+                                 "d=272282 f32",
+        "block_row_stream": "sum over the 61 segments of one round, n=10 as C=2 m=5, f32",
+        "block_relay_mix": "one launch, n=10 as C=2 m=5, d=272282 f32",
+        "relay_mix": "one launch, n=16 d=2^20 f32 (the kernel benchmark's shape)",
     }
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"

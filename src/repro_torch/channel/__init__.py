@@ -1,7 +1,14 @@
 """Connectivity processes: the paper's i.i.d. channel and the
-Gilbert–Elliott bursty-blockage chains."""
+Gilbert–Elliott bursty-blockage chains, dense and in clustered block
+form."""
 
-from repro_torch.channel.base import BlockBufferedChannel, StaticChannel
+from repro_torch.channel.base import BlockBufferedChannel, StaticChannel, pair_lane_table
+from repro_torch.channel.clustered import (
+    ClusteredGEParams,
+    ClusteredMarkovChannel,
+    ClusteredStaticChannel,
+    gilbert_elliott_clustered,
+)
 from repro_torch.channel.markov import (
     GEParams,
     MarkovChannel,
@@ -12,6 +19,11 @@ from repro_torch.channel.markov import (
 __all__ = [
     "BlockBufferedChannel",
     "StaticChannel",
+    "pair_lane_table",
+    "ClusteredGEParams",
+    "ClusteredMarkovChannel",
+    "ClusteredStaticChannel",
+    "gilbert_elliott_clustered",
     "GEParams",
     "MarkovChannel",
     "gilbert_elliott",

@@ -5,11 +5,12 @@ asks a channel for
 
 * ``tau_for_round(r)`` — the round-r realization ``(tau_up (n,),
   tau_dd (n, n))``, same conventions as
-  :func:`repro_torch.core.connectivity.sample_round`;
+  :func:`repro_torch.core.connectivity.sample_round`, or ``tau_dd`` as
+  ``(C, m, m)`` blocks for the clustered channels;
 * ``trace(start, rounds)`` — the same stream in bulk, ``(K, n)`` and
-  ``(K, n, n)`` for rounds ``[start, start + K)``;
+  ``(K, n, n)`` (or ``(K, C, m, m)``) for rounds ``[start, start + K)``;
 * ``model_for_round(r)`` — the ground-truth marginals as a
-  :class:`LinkModel`.
+  :class:`LinkModel` (or :class:`ClusteredLinkModel`).
 
 :class:`StaticChannel` draws with numpy exactly as the reference does, so
 the same seed gives the same taus in both packages.  Rounds are consumed
@@ -22,15 +23,16 @@ import numpy as np
 
 from repro_torch.core.connectivity import LinkModel, sample_rounds
 
-__all__ = ["BlockBufferedChannel", "StaticChannel"]
+__all__ = ["BlockBufferedChannel", "StaticChannel", "pair_lane_table"]
 
 
 class BlockBufferedChannel:
     """Serve a per-round tau stream out of block-generated trace buffers.
 
     Subclasses implement ``_generate_block(rounds) -> (ups, dds)`` with
-    shapes ``(R, n)`` / ``(R, n, n)``; per-round and bulk service read
-    the same buffers, so both see bitwise-identical streams.
+    shapes ``(R, n)`` / ``(R, n, n)`` (or ``(R, C, m, m)``); per-round and
+    bulk service read the same buffers, so both see bitwise-identical
+    streams.
     """
 
     def __init__(self, n: int, block: int = 256):
@@ -96,3 +98,17 @@ class StaticChannel(BlockBufferedChannel):
 
     def model_for_round(self, r: int) -> LinkModel:
         return self.model
+
+
+def pair_lane_table(n: int) -> np.ndarray:
+    """``(n*n,)`` gather lanes for assembling ``tau_dd`` from per-pair
+    draws: entry ``(i, j)`` picks its unordered pair's tau_ij lane (upper
+    triangle), tau_ji lane (lower triangle, offset by ``m``), or the
+    constant-1 diagonal lane ``2m``, where ``m = n(n-1)/2`` — the layout of
+    the stacked ``[tij, tji, ones]`` form."""
+    iu, ju = np.triu_indices(n, k=1)
+    m = iu.shape[0]
+    lane = np.full((n, n), 2 * m, np.int32)
+    lane[iu, ju] = np.arange(m)
+    lane[ju, iu] = m + np.arange(m)
+    return lane.ravel()

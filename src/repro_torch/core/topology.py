@@ -21,6 +21,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .blocks import ClusteredLinkModel, ClusterSpec
 from .connectivity import LinkModel, reciprocity_matrix
 
 __all__ = [
@@ -30,6 +31,7 @@ __all__ = [
     "ring",
     "star_relay",
     "clustered",
+    "clustered_blocks",
     "mmwave_prob",
     "mmwave_geometric",
     "paper_fig2a",
@@ -124,6 +126,32 @@ def clustered(
     P = np.where(same, p_intra, p_inter).astype(np.float64)
     np.fill_diagonal(P, 1.0)
     return LinkModel(_uniform_uplinks(n, p_up), P, reciprocity_matrix(P, rho))
+
+
+def clustered_blocks(
+    n: int,
+    p_up,
+    cluster_size: int,
+    p_intra: float = 1.0,
+    rho: float = 1.0,
+) -> ClusteredLinkModel:
+    """Block form of :func:`clustered` with ``p_inter = 0``: only the C
+    diagonal ``(m, m)`` blocks are built, so the dense (n, n) statistics
+    never exist (n = 2^14 costs ``n * m`` floats per tensor, not ``n**2``).
+
+    Identical statistics to ``clustered(n, p_up, cluster_size, p_intra,
+    p_inter=0.0, rho)``.
+    """
+    spec = ClusterSpec(n, cluster_size)
+    m = cluster_size
+    Pblk = np.full((m, m), float(p_intra))
+    np.fill_diagonal(Pblk, 1.0)
+    Eblk = reciprocity_matrix(Pblk, rho)
+    return ClusteredLinkModel(
+        _uniform_uplinks(n, p_up),
+        np.broadcast_to(Pblk, (spec.C, m, m)).copy(),
+        np.broadcast_to(Eblk, (spec.C, m, m)).copy(),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from .blocks import ClusteredLinkModel
 from .connectivity import LinkModel
 
 __all__ = [
@@ -42,6 +43,10 @@ __all__ = [
     "optimize_weights",
     "importance_weights",
     "OptResult",
+    "ClusteredOptResult",
+    "optimize_weights_clustered",
+    "unbiasedness_residual_clustered",
+    "is_unbiased_clustered",
 ]
 
 # ---------------------------------------------------------------------------
@@ -269,4 +274,91 @@ def optimize_weights(
         S_init=S_init,
         history=history,
         converged=converged,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Block-clustered COPT-alpha: the O(n²) -> O(C·m²) decomposition
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ClusteredOptResult:
+    Ab: np.ndarray            # (C, m, m) optimized per-cluster weights
+    S: float                  # total variance proxy, sum over clusters
+    Sbar: float
+    S_init: float
+    per_cluster: list         # the C individual OptResults
+    converged: bool           # all clusters converged
+
+
+def optimize_weights_clustered(
+    model: ClusteredLinkModel,
+    *,
+    sweeps: int = 50,
+    fine_tune_sweeps: int = 50,
+    tol: float = 1e-10,
+    init: Optional[np.ndarray] = None,
+    callback: Optional[Callable[[int, str, int, float], None]] = None,
+) -> ClusteredOptResult:
+    """COPT-alpha on a block-diagonal model: one independent Gauss–Seidel
+    per cluster, O(C·m²) column solves instead of O(n²).
+
+    The decomposition is exact: with p_ij = 0 across clusters, column i's
+    unbiasedness constraint has support only inside i's cluster, and every
+    coupling term of S / Sbar carries a factor that vanishes across
+    clusters, so the dense objective is a sum of per-cluster objectives.
+
+    ``init`` may be a (C, m, m) block warm start; ``callback`` receives
+    ``(cluster, phase, sweep, value)``.  S / Sbar / S_init are the
+    dense-equivalent totals (sums over clusters).
+    """
+    C, m = model.C, model.m
+    Ab = np.zeros((C, m, m))
+    per_cluster: list = []
+    if init is not None:
+        init = np.asarray(init, dtype=np.float64)
+        if init.shape != (C, m, m):
+            raise ValueError(f"init must be ({C}, {m}, {m}), got {init.shape}")
+    for c in range(C):
+        cb = None
+        if callback is not None:
+            cb = lambda tag, s, v, _c=c: callback(_c, tag, s, v)
+        res = optimize_weights(
+            model.cluster_model(c),
+            sweeps=sweeps,
+            fine_tune_sweeps=fine_tune_sweeps,
+            tol=tol,
+            init=None if init is None else init[c],
+            callback=cb,
+        )
+        Ab[c] = res.A
+        per_cluster.append(res)
+    return ClusteredOptResult(
+        Ab=Ab,
+        S=float(sum(r.S for r in per_cluster)),
+        Sbar=float(sum(r.Sbar for r in per_cluster)),
+        S_init=float(sum(r.S_init for r in per_cluster)),
+        per_cluster=per_cluster,
+        converged=all(r.converged for r in per_cluster),
+    )
+
+
+def unbiasedness_residual_clustered(
+    model: ClusteredLinkModel, Ab: np.ndarray
+) -> np.ndarray:
+    """Per-client residual of condition (5) on the block form: the dense
+    sum over j collapses to j in i's cluster (p_ij = 0 elsewhere)."""
+    Ab = np.asarray(Ab, dtype=np.float64)
+    C, m = model.C, model.m
+    pb = model.p.reshape(C, m)
+    # c_i = sum_j p_j * Pb[c, i, j] * Ab[c, j, i]
+    return np.einsum("cj,cij,cji->ci", pb, model.Pb, Ab).reshape(C * m) - 1.0
+
+
+def is_unbiased_clustered(
+    model: ClusteredLinkModel, Ab: np.ndarray, atol: float = 1e-8
+) -> bool:
+    return bool(
+        np.max(np.abs(unbiasedness_residual_clustered(model, Ab))) <= atol
     )

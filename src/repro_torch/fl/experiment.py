@@ -46,7 +46,7 @@ from repro_torch.fl.trainer import FLTrainer, TrainLog, resolve_device, unported
 from repro_torch.models import cnn
 from repro_torch.optim import sgd, sgd_momentum
 
-__all__ = ["TOPOLOGIES", "ExperimentSpec", "Experiment", "build_experiment"]
+__all__ = ["TOPOLOGIES", "ExperimentSpec", "Experiment", "build_task", "build_experiment"]
 
 # Named topology factories (the paper's figures + synthetic layouts).
 TOPOLOGIES: Dict[str, Callable[[], LinkModel]] = {
@@ -276,6 +276,18 @@ _MODEL_BUILDERS = {
 }
 
 
+def build_task(spec: ExperimentSpec, n: int, device=None):
+    """The task of ``spec`` for ``n`` clients on ``device`` (the CUDA device
+    unless given): ``(loss_fn, init_params, clients, client_opt,
+    server_opt, local_steps, eval_fn)``, what :func:`build_experiment`
+    hands to ``FLTrainer``.  A run that :func:`build_experiment` does not
+    assemble starts from it: clustered relaying is an ``FLTrainer`` given
+    these, a clustered channel and ``(C, m, m)`` relay weights."""
+    if spec.model not in _MODEL_BUILDERS:
+        raise KeyError(f"unknown model kind {spec.model!r}; have {sorted(_MODEL_BUILDERS)}")
+    return _MODEL_BUILDERS[spec.model](spec, n, resolve_device(device))
+
+
 def build_experiment(spec: ExperimentSpec, device=None) -> Experiment:
     """Assemble model, data, topology, channel, strategy and optimizers
     from one spec, on ``device`` (the CUDA device unless given)."""
@@ -289,7 +301,7 @@ def build_experiment(spec: ExperimentSpec, device=None) -> Experiment:
     strategy = strategy_registry.resolve(spec.strategy, **dict(spec.strategy_options))
     A, copt_result = _resolve_alpha(spec, link_model, strategy)
     loss_fn, init_params, clients, client_opt, server_opt, local_steps, eval_fn = (
-        _MODEL_BUILDERS[spec.model](spec, n, dev))
+        build_task(spec, n, dev))
     trainer = FLTrainer(
         loss_fn, init_params, link_model, A, clients, client_opt, server_opt,
         local_steps=local_steps, strategy=strategy, mode=spec.mode,

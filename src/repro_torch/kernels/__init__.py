@@ -4,6 +4,11 @@ and the device dispatch in :mod:`repro_torch.kernels.ops`.
 * ``fused_aggregate`` — the full ColRel aggregation (mixing mask + relay
   mix + tau-weighted blind PS sum) in one pass over the (n, d) stack.
 * ``row_stream`` — its segment-streaming twin, ``w @ segment``.
+* ``fused_memory`` — the memory strategy's select-accumulate-update.
+* ``fused_dequant`` — the aggregation over the int8 wire stack.
+* ``relay_block`` — the clustered (block-sparse) relay mix, aggregation
+  and segment stream over ``(C, m, m)`` blocks; ``relay_mix`` — the
+  dense relay mix for a given mask, the same kernel with one cluster.
 
 Sources are in ``csrc/`` and are compiled by :mod:`.build` at first use.
 """

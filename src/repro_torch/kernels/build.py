@@ -24,7 +24,8 @@ import subprocess
 __all__ = ["BUILD_DIR", "SOURCES", "find_nvcc", "library"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "fused_aggregate.cu", _CSRC / "fused_memory.cu")
+SOURCES = (_CSRC / "fused_aggregate.cu", _CSRC / "fused_memory.cu",
+           _CSRC / "relay_block.cu")
 _HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +44,14 @@ _SIGNATURES = {
                                   _F, _P),
     # (mix, tau_up, x, ldx, buf, ldb, delta, n, d, block_d, dtype, inv_n, stream)
     "repro_memory_stream": (_P, _P, _P, _I64, _P, _I64, _P, _I, _I64, _I64, _I, _F, _P),
+    # (A, tau_up, tau_b, x, w scratch, out, C, m, d, block_d, dtype, inv_n, stream)
+    "repro_block_fused_aggregate": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I64, _I, _F, _P),
+    # (w, x, out, n, d, block_d, dtype, stream)
+    "repro_block_row_stream": (_P, _P, _P, _I, _I64, _I64, _I, _P),
+    # (A, tau_b, x, out, C, m, d, dtype, stream)
+    "repro_block_relay_mix": (_P, _P, _P, _P, _I, _I, _I64, _I, _P),
+    # (mix, x, out, n, d, dtype, stream)
+    "repro_relay_mix": (_P, _P, _P, _I, _I64, _I, _P),
 }
 
 

@@ -17,6 +17,11 @@ monolithic pass bitwise.
 
 The memory functions update the replay buffer they are given in place
 (see :mod:`repro_torch.kernels.fused_memory`).
+
+The ``block_*`` functions are the clustered twins: the relay weights and
+the D2D realizations come as ``(C, m, m)`` blocks, the per-round operand
+is :func:`block_collapsed_weight_row`, and the dense (n, n) mask never
+exists (see :mod:`repro_torch.kernels.relay_block`).
 """
 
 from __future__ import annotations
@@ -26,8 +31,11 @@ import torch
 from repro_torch.kernels import fused_aggregate as fa
 from repro_torch.kernels import fused_dequant as fdq
 from repro_torch.kernels import fused_memory as fm
+from repro_torch.kernels import relay_block as rb
+from repro_torch.kernels import relay_mix as rm
 from repro_torch.kernels.fused_aggregate import collapsed_weight_row, mixing_mask
 from repro_torch.kernels.fused_dequant import fold_dequant_scales
+from repro_torch.kernels.relay_block import block_collapsed_weight_row
 
 __all__ = [
     "mixing_mask",
@@ -39,6 +47,11 @@ __all__ = [
     "memory_stream",
     "fused_dequant_aggregate",
     "dequant_row_stream",
+    "relay_mix",
+    "block_relay_mix",
+    "block_collapsed_weight_row",
+    "block_fused_aggregate",
+    "block_row_stream",
 ]
 
 
@@ -104,3 +117,39 @@ def dequant_row_stream(ws: torch.Tensor, q_segment: torch.Tensor, *,
     if q_segment.dtype != torch.int8:
         raise TypeError(f"dequant_row_stream takes an int8 segment, got {q_segment.dtype}")
     return row_stream(ws, q_segment, block_d=block_d)
+
+
+def relay_mix(mixing: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
+    """ColRel consensus ``mixing @ updates`` for a given (n, n) realized
+    mask: (n, d) in the stack's dtype, f32 accumulation."""
+    if _on_cpu(updates):
+        return rm.relay_mix_plain(mixing, updates)
+    return rm.relay_mix_cuda(mixing, updates)
+
+
+def block_relay_mix(Ab: torch.Tensor, tau_b: torch.Tensor,
+                    updates: torch.Tensor) -> torch.Tensor:
+    """Blocked consensus ``Dx~_c = (A_c * tau_c^T) @ Dx_c`` over (C, m, m)
+    cluster blocks: (n, d) in the stack's dtype."""
+    if _on_cpu(updates):
+        return rb.block_relay_mix_plain(Ab, tau_b, updates)
+    return rb.block_relay_mix_cuda(Ab, tau_b, updates)
+
+
+def block_fused_aggregate(Ab: torch.Tensor, tau_up: torch.Tensor, tau_b: torch.Tensor,
+                          updates: torch.Tensor, *, block_d: int = 2048) -> torch.Tensor:
+    """One-pass blocked ColRel PS delta ``(1/n) sum_c tau_c @ ((A_c *
+    tau_c^T) @ Dx_c)`` over (C, m, m) cluster blocks: the (n, d) stack is
+    read once; the output is the (d,) f32 delta."""
+    if _on_cpu(updates):
+        return rb.block_fused_aggregate_plain(Ab, tau_up, tau_b, updates)
+    return rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, updates, block_d=block_d)
+
+
+def block_row_stream(w: torch.Tensor, segment: torch.Tensor, *,
+                     block_d: int = 2048) -> torch.Tensor:
+    """One segment's blocked PS-delta columns ``sum_c w_c @ segment_c``
+    ((C, m) x (n, d_i) -> (d_i,) f32)."""
+    if _on_cpu(segment):
+        return rb.block_row_stream_plain(w, segment)
+    return rb.block_row_stream_cuda(w, segment, block_d=block_d)

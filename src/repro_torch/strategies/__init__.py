@@ -1,11 +1,11 @@
 """Aggregation strategies: the protocol, the registry, the paper's ColRel
-with its FedAvg baselines, the replay-buffer ``memory`` scheme and the
-codec-wrapped ``quantized`` scheme.  Importing this package registers
-them::
+with its FedAvg baselines, the block-sparse ``clustered`` ColRel, the
+replay-buffer ``memory`` scheme and the codec-wrapped ``quantized``
+scheme.  Importing this package registers them::
 
     from repro_torch import strategies
 
-    strategies.available()   # ('colrel', 'fedavg_blind', ..., 'memory', 'quantized')
+    strategies.available()   # ('clustered', 'colrel', ..., 'memory', 'quantized')
     s = strategies.get("colrel", fused="kernel")
 """
 
@@ -17,6 +17,7 @@ from repro_torch.strategies.classic import (
     FedAvgNonBlind,
     FedAvgPerfect,
 )
+from repro_torch.strategies.clustered import ClusteredColRelStrategy
 from repro_torch.strategies.memory import MemoryStrategy
 from repro_torch.strategies.quantized import QuantizedStrategy
 
@@ -27,6 +28,7 @@ __all__ = [
     "get",
     "register",
     "resolve",
+    "ClusteredColRelStrategy",
     "ColRelStrategy",
     "FedAvgBlind",
     "FedAvgNonBlind",

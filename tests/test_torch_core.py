@@ -159,10 +159,10 @@ def test_colrel_kernel_segments_equal_monolithic_bitwise():
 
 
 def test_unported_strategies_raise():
-    for name in ("multihop", "clustered", "async_colrel"):
+    for name in ("multihop", "async_colrel"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             strategies.get(name)
-    assert {"memory", "quantized"} <= set(strategies.available())
+    assert {"memory", "quantized", "clustered"} <= set(strategies.available())
 
 
 def test_copt_alpha_on_fig2b_equals_reference():

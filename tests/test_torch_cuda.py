@@ -5,7 +5,9 @@ there with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance atol 1e-5 + rtol 1e-5 (f32 accumulation, and bf16/int8 widened
 exactly to f32).  The kernels run the plain versions' arithmetic in the
 same order, so in practice they agree to the bit; segmented memory runs
-are held to the monolithic kernel at 0.
+are held to the monolithic kernel at 0.  The clustered kernels and the
+dense relay mix are held to their plain versions, to the dense kernels at
+C = 1 and segments to the monolithic pass, all bitwise.
 """
 
 import pytest
@@ -15,6 +17,8 @@ from repro_torch.kernels import fused_aggregate as fa
 from repro_torch.kernels import fused_dequant as fdq
 from repro_torch.kernels import fused_memory as fm
 from repro_torch.kernels import ops
+from repro_torch.kernels import relay_block as rb
+from repro_torch.kernels import relay_mix as rm
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -166,3 +170,99 @@ def test_fused_dequant_kernel_matches_plain(dev, n, d):
     cuts = sorted({0, min(d, 10), d})
     parts = [ops.dequant_row_stream(ws, q[:, a:b].contiguous()) for a, b in zip(cuts, cuts[1:])]
     assert torch.equal(torch.cat(parts), got)
+
+
+# -- the clustered kernels and the dense relay mix ----------------------------
+
+CLUSTERINGS = [(1, 4), (1, 10), (2, 5), (1, 33), (3, 11), (64, 16)]  # C, m
+
+
+def _blocks(C, m, d, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    Ab = torch.rand(C, m, m, generator=g) * 0.5 + 0.1
+    tau_up = (torch.rand(C * m, generator=g) < 0.7).float()
+    tau_b = (torch.rand(C, m, m, generator=g) < 0.5).float()
+    X = torch.randn(C * m, d, generator=g).to(dtype)
+    return [t.to(dev) for t in (Ab, tau_up, tau_b, X)]
+
+
+def _block_kernels_equal_plain(Ab, tau_up, tau_b, X):
+    counts = [f.launches for f in (rb.block_relay_mix_cuda, rb.block_fused_aggregate_cuda,
+                                   rb.block_row_stream_cuda)]
+    mix = rb.block_relay_mix_cuda(Ab, tau_b, X)
+    agg = rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X)
+    w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+    seg = rb.block_row_stream_cuda(w, X)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (rb.block_relay_mix_cuda, rb.block_fused_aggregate_cuda,
+                                 rb.block_row_stream_cuda)] == [c + 1 for c in counts]
+    assert mix.dtype == X.dtype and agg.dtype == seg.dtype == torch.float32
+    assert torch.equal(mix, rb.block_relay_mix_plain(Ab, tau_b, X))
+    assert torch.equal(agg, rb.block_fused_aggregate_plain(Ab, tau_up, tau_b, X))
+    assert torch.equal(seg, rb.block_row_stream_plain(w, X))
+    assert torch.equal(seg, agg)
+
+
+@pytest.mark.parametrize("C,m", CLUSTERINGS)
+@pytest.mark.parametrize("d", [1, 1000, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernels_match_plain_bitwise(dev, C, m, d, dtype):
+    _block_kernels_equal_plain(*_blocks(C, m, d, dtype, dev, seed=C * m + d))
+
+
+def test_block_kernels_at_population_scale(dev):
+    """n = 16,384 as C = 256 clusters of m = 64: the weight row is read
+    through the cache, not staged in shared memory."""
+    _block_kernels_equal_plain(*_blocks(256, 64, 4099, torch.float32, dev, seed=7))
+
+
+@pytest.mark.parametrize("n", [4, 10, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernels_at_one_cluster_equal_the_dense_kernels(dev, n, dtype):
+    A, tau_up, tau_dd, X = _round(n, 272282, dtype, dev, seed=4 * n)
+    assert torch.equal(rb.block_fused_aggregate_cuda(A[None], tau_up, tau_dd[None], X),
+                       fa.fused_aggregate_cuda(A, tau_up, tau_dd, X))
+    w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+    assert torch.equal(rb.block_row_stream_cuda(w.reshape(1, n), X), fa.row_stream_cuda(w, X))
+    assert torch.equal(rb.block_relay_mix_cuda(A[None], tau_dd[None], X),
+                       rm.relay_mix_cuda(ops.mixing_mask(A, tau_dd), X))
+
+
+def test_block_segments_equal_monolithic_on_the_card(dev):
+    Ab, tau_up, tau_b, X = _blocks(2, 5, 5000, torch.float32, dev, seed=1)
+    mono = ops.block_fused_aggregate(Ab, tau_up, tau_b, X)
+    w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+    cuts = [0, 10, 17, 2048, 5000]
+    parts = [ops.block_row_stream(w, X[:, a:b].contiguous()) for a, b in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(parts), mono)
+
+
+@pytest.mark.parametrize("n", [4, 10, 16, 33, 110])
+@pytest.mark.parametrize("d", [1, 1000, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relay_mix_kernel_matches_plain_bitwise(dev, n, d, dtype):
+    g = torch.Generator().manual_seed(n + d)
+    M = torch.randn(n, n, generator=g).to(dev)
+    X = torch.randn(n, d, generator=g).to(dtype).to(dev)
+    before = rm.relay_mix_cuda.launches
+    got = rm.relay_mix_cuda(M, X)
+    torch.cuda.synchronize()
+    assert rm.relay_mix_cuda.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, rm.relay_mix_plain(M, X))
+
+
+def test_block_wrappers_reject_what_the_kernels_do_not_take(dev):
+    Ab, tau_up, tau_b, X = _blocks(2, 5, 64, torch.float32, dev, seed=2)
+    with pytest.raises(TypeError):
+        rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rb.block_relay_mix_cuda(Ab, tau_b, X[:, ::2])
+    with pytest.raises(ValueError, match="stack"):
+        rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X[:9])
+    with pytest.raises(ValueError, match="shape"):
+        rb.block_fused_aggregate_cuda(Ab, tau_up[:9], tau_b, X)
+    with pytest.raises(ValueError, match="block_d"):
+        rb.block_row_stream_cuda(tau_up.reshape(2, 5), X, block_d=100)
+    with pytest.raises(ValueError, match="m <= 110"):
+        big = torch.zeros(1, 111, 111, device=dev)
+        rb.block_relay_mix_cuda(big, big, torch.zeros(111, 8, device=dev))

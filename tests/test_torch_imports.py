@@ -38,6 +38,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_reference():
 def test_importing_every_port_module_loads_no_jax():
     modules = sorted(".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)
                      .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    assert {"repro_torch.core.blocks", "repro_torch.channel.clustered",
+            "repro_torch.kernels.relay_block", "repro_torch.kernels.relay_mix",
+            "repro_torch.strategies.clustered"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")

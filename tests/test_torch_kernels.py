@@ -1,5 +1,6 @@
-"""The port's aggregation kernels (plain PyTorch versions, the CPU path)
-against the reference's Pallas kernels run in interpret mode.
+"""The port's aggregation and relay-mix kernels (plain PyTorch versions,
+the CPU path) against the reference's Pallas kernels run in interpret
+mode.
 
 Inputs are made with numpy from a seed and handed to both.  Both sides
 widen bf16/int8 to f32 exactly and accumulate in f32, so they differ only
@@ -13,8 +14,16 @@ import pytest
 import torch
 
 from repro.kernels.fused_aggregate import fused_aggregate_pallas, row_stream_pallas
+from repro.kernels.relay_block import (
+    block_fused_aggregate_pallas,
+    block_relay_mix_pallas,
+    block_row_stream_pallas,
+)
+from repro.kernels.relay_mix import relay_mix_pallas
 from repro_torch.kernels import fused_aggregate as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import relay_block as rb
+from repro_torch.kernels import relay_mix as rm
 
 ATOL = 1e-5
 
@@ -116,3 +125,145 @@ def test_segments_equal_monolithic_bitwise():
     cuts = [0, 10, 11, 400, 1000]
     parts = [ops.row_stream(w, args[3][:, a:b].contiguous()) for a, b in zip(cuts, cuts[1:])]
     assert torch.equal(torch.cat(parts), mono)
+
+
+# -- the clustered (block-sparse) kernels and the dense relay mix -------------
+#
+# The reference's own bound for its blocked kernels (tests/test_clustered.py)
+# is atol 2e-6 + rtol 1e-5 in f32; the (d,) aggregations widen bf16 to f32
+# exactly and are held to the same bound.  Its bound for the dense relay-mix
+# sweep (tests/test_kernels.py), whose mask is N(0, 1) with up to 33 terms
+# a sum and cancels, is 1e-4.  The relay mixes return the stack's dtype, so
+# their bf16 outputs may further differ by one bf16 rounding step (2^-7
+# relative) where the f32 sums, taken in another order, fall on either side
+# of a rounding boundary.
+
+F32_TOL = dict(atol=2e-6, rtol=1e-5)
+BF16_TOL = dict(atol=2e-6, rtol=2.0 ** -7)
+MIX_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+MIX_BF16_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
+KSHAPES = [(3, 5, 37, 16), (2, 8, 64, 64), (4, 3, 10, 4), (1, 6, 33, 8)]  # C, m, d, block_d
+
+
+def _block_inputs(C, m, d, seed):
+    rng = np.random.default_rng(seed)
+    Ab = rng.uniform(0.1, 2.0, size=(C, m, m)).astype(np.float32)
+    tau_b = rng.integers(0, 2, size=(C, m, m)).astype(np.float32)
+    tau_up = rng.integers(0, 2, size=(C * m,)).astype(np.float32)
+    X = rng.normal(size=(C * m, d)).astype(np.float32)
+    return Ab, tau_up, tau_b, X
+
+
+def _f32(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("n", [4, 10, 16, 33])
+@pytest.mark.parametrize("d", [128, 1000, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_relay_mix_plain_matches_pallas(n, d, dtype):
+    rng = np.random.default_rng(n * 13 + d)
+    M = rng.normal(size=(n, n)).astype(np.float32)
+    xj, xt = _stack(rng.normal(size=(n, d)).astype(np.float32), dtype)
+    want = relay_mix_pallas(jnp.asarray(M), xj, block_d=512, interpret=True)
+    got = rm.relay_mix_plain(torch.from_numpy(M), xt)
+    assert got.shape == (n, d) and got.dtype == xt.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want),
+                               **(MIX_F32_TOL if dtype == "float32" else MIX_BF16_TOL))
+
+
+@pytest.mark.parametrize("C,m,d,bd", KSHAPES, ids=[f"C{c}m{m}d{d}bd{b}" for c, m, d, b in KSHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_kernels_plain_match_pallas(C, m, d, bd, dtype):
+    Ab, tau_up, tau_b, X = _block_inputs(C, m, d, seed=C * 100 + m)
+    xj, xt = _stack(X, dtype)
+    a, tu, tb = (torch.from_numpy(v) for v in (Ab, tau_up, tau_b))
+    aj, tuj, tbj = (jnp.asarray(v) for v in (Ab, tau_up, tau_b))
+
+    mix = rb.block_relay_mix_plain(a, tb, xt)
+    assert mix.shape == (C * m, d) and mix.dtype == xt.dtype
+    np.testing.assert_allclose(
+        _f32(mix), _f32(block_relay_mix_pallas(aj, tbj, xj, block_d=bd, interpret=True)),
+        **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+    agg = rb.block_fused_aggregate_plain(a, tu, tb, xt)
+    assert agg.shape == (d,) and agg.dtype == torch.float32
+    np.testing.assert_allclose(
+        agg.numpy(), np.asarray(block_fused_aggregate_pallas(aj, tuj, tbj, xj, block_d=bd,
+                                                             interpret=True)), **F32_TOL)
+
+    w = rb.block_collapsed_weight_row(a, tu, tb)
+    assert w.shape == (C, m)
+    np.testing.assert_allclose(
+        rb.block_row_stream_plain(w, xt).numpy(),
+        np.asarray(block_row_stream_pallas(jnp.asarray(w.numpy()), xj, block_d=bd,
+                                           interpret=True)), **F32_TOL)
+
+
+def test_block_collapsed_weight_row_matches_reference_expression():
+    Ab, tau_up, tau_b, _ = _block_inputs(3, 5, 1, seed=3)
+    got = ops.block_collapsed_weight_row(*(torch.from_numpy(v) for v in (Ab, tau_up, tau_b)))
+    want = np.einsum("ci,cij->cj", tau_up.astype(np.float64).reshape(3, 5),
+                     Ab * np.swapaxes(tau_b, 1, 2)) / 15
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+def test_block_kernels_at_one_cluster_are_the_dense_ones_bitwise():
+    """C = 1: the blocked plain versions run the dense ones' arithmetic."""
+    A, tau_up, tau_dd, X = (torch.from_numpy(a) for a in _round_inputs(10, 300, seed=4))
+    A1, td1 = A[None], tau_dd[None]
+    assert torch.equal(rb.block_fused_aggregate_plain(A1, tau_up, td1, X),
+                       fa.fused_aggregate_plain(A, tau_up, tau_dd, X))
+    w = ops.block_collapsed_weight_row(A1, tau_up, td1)
+    assert torch.equal(w.reshape(-1), ops.collapsed_weight_row(A, tau_up, tau_dd))
+    assert torch.equal(rb.block_row_stream_plain(w, X), fa.row_stream_plain(w.reshape(-1), X))
+    assert torch.equal(rb.block_relay_mix_plain(A1, td1, X),
+                       rm.relay_mix_plain(ops.mixing_mask(A, tau_dd), X))
+
+
+def test_block_segments_equal_monolithic_bitwise():
+    Ab, tau_up, tau_b, X = (torch.from_numpy(a) for a in _block_inputs(2, 5, 1000, seed=9))
+    mono = ops.block_fused_aggregate(Ab, tau_up, tau_b, X)
+    w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+    cuts = [0, 10, 11, 400, 1000]
+    parts = [ops.block_row_stream(w, X[:, a:b].contiguous()) for a, b in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(parts), mono)
+
+
+def test_block_ops_dispatch_cpu_takes_plain_version_without_launching():
+    Ab, tau_up, tau_b, X = (torch.from_numpy(a) for a in _block_inputs(3, 5, 300, seed=5))
+    wrappers = (rb.block_relay_mix_cuda, rb.block_fused_aggregate_cuda,
+                rb.block_row_stream_cuda, rm.relay_mix_cuda)
+    before = [f.launches for f in wrappers]
+    for f in wrappers:
+        f.launches = 0
+    try:
+        assert torch.equal(ops.block_relay_mix(Ab, tau_b, X),
+                           rb.block_relay_mix_plain(Ab, tau_b, X))
+        assert torch.equal(ops.block_fused_aggregate(Ab, tau_up, tau_b, X),
+                           rb.block_fused_aggregate_plain(Ab, tau_up, tau_b, X))
+        w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+        assert torch.equal(ops.block_row_stream(w, X), rb.block_row_stream_plain(w, X))
+        mix = rb.block_mixing_mask(Ab, tau_b)[0]
+        assert torch.equal(ops.relay_mix(mix, X[:5]), rm.relay_mix_plain(mix, X[:5]))
+        assert [f.launches for f in wrappers] == [0, 0, 0, 0]
+    finally:
+        for f, b in zip(wrappers, before):
+            f.launches = b
+
+
+def test_block_cuda_wrappers_refuse_cpu_tensors():
+    Ab, tau_up, tau_b, X = (torch.from_numpy(a) for a in _block_inputs(2, 4, 16, seed=1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rb.block_relay_mix_cuda(Ab, tau_b, X)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rb.block_row_stream_cuda(tau_up.reshape(2, 4), X)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rm.relay_mix_cuda(Ab[0], X[:4])
+    with pytest.raises(ValueError, match="n <= 110"):
+        rm.relay_mix_cuda(torch.zeros(111, 111), torch.zeros(111, 4))
+    with pytest.raises(ValueError, match="m <= 110"):
+        rb.block_relay_mix_cuda(torch.zeros(1, 111, 111), torch.zeros(1, 111, 111),
+                                torch.zeros(111, 4))

@@ -125,7 +125,6 @@ def test_unported_options_raise():
     for kw in (dict(chunk=4), dict(mode="client_sequential"), dict(mode="async"),
                dict(channel="mobility"), dict(adaptive=True), dict(telemetry=True),
                dict(metrics_dir="m"), dict(profile_dir="p"), dict(ckpt_dir="c"),
-               dict(resume_from="c"), dict(strategy="multihop"), dict(strategy="clustered"),
-               dict(strategy="async_colrel")):
+               dict(resume_from="c"), dict(strategy="multihop"), dict(strategy="async_colrel")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_experiment(ExperimentSpec(model="quadratic", **kw), device="cpu")
