@@ -41,7 +41,22 @@ each of which fails the run by raising:
    plain version and one PyTorch call computing the same product where
    there is one;
 6. where one more round of the kernel path spends its time
-   (torch.profiler): the device's busy share and the top operations.
+   (torch.profiler): the device's busy share and the top operations;
+7. serving seamless-m4t-large-v2 at full width (24 + 24 layers, d_model
+   1024, bf16, the port's own init from a seed): the prefill step on 4
+   requests of 960 frames and a 4096-token prompt through the flash
+   kernel (24 launches a prefill, counted), its time and peak memory,
+   against the plain path at a depth cut (see PREFILL_TOL); then the
+   serving CLI's path on 4 requests (64-token prompt replayed through the
+   serve step, 32 greedy tokens), with prefill-vs-replay consistency at a
+   depth cut;
+8. kernel 10 (causal flash attention) timed at the prefill shape beside
+   its bound, its plain version and PyTorch's
+   scaled_dot_product_attention.
+
+Phase 3 also holds kernel 10 against its plain version at (BH, T, D) in
+{(2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64)}, f32 and
+bf16, and through the GQA entry point (16 query heads over 8 kv heads).
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -62,6 +77,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 HIDE_HOST_CYCLES = 4_000_000  # ~2 ms of device sleep, longer than any timed call's host enqueue
 ROUNDS = 3
 # One aggregation of the same stacked deltas: the kernel, segmented, collapse
@@ -81,6 +97,32 @@ PARAM_ATOL = 1e-4
 # One aggregation of identical inputs is held at AGG_ATOL above.
 STRATEGY_PARAM_ATOL = 1e-3
 N_LEAVES, D_FULL = 61, 272282  # cifar_cnn_full's parameter tree
+# Kernel 10 against its plain version (the dense softmax): the reference's
+# bound for its kernel in f32 (tests/test_kernels.py:52), and 2e-2 in bf16
+# (the output is rounded to bf16 on both sides), compared in f32.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SEAMLESS = "seamless-m4t-large-v2"
+# prefill cut from prefill_32k's 32 x 32768 (the reference's unchunked
+# cross-attention logits alone would be 64 GB there); serving as the
+# reference's serve_decode example does it, at 4 requests
+PF_B, PF_T = 4, 4096
+SV_B, SV_P, SV_G = 4, 64, 32
+# Full-width seamless under the zoo's init (projections scaled by the
+# fan-in shape[-2], the head count for wq) has attention logits of standard
+# deviation ~64: the softmaxes are nearly one-hot and a near-tie flips on a
+# last-bit difference, so two exact computations of the same model
+# decorrelate with depth, by ~10x a layer, the reference's own paths as
+# well as the port's (tools/depth_probe.py measures both).  At all 24
+# layers the last logits of the flash and the plain path are ~1.2 apart
+# (relative L2) in f32 and bf16 alike.  So the paths are compared on the same params cut to
+# their first CMP_DEPTH encoder and decoder layers (full width, the same
+# shapes), by relative L2 of the last logits: 1e-3 in f32 (the flash and
+# chunked paths' f32 sums in other orders), 2e-2 in bf16 (about ten bf16
+# roundings of 2^-9).  The bf16 decode replay rounds its one-token
+# projections differently from the prefill's, so its bf16 check is at depth
+# 1; f32 at CMP_DEPTH.
+CMP_DEPTH = 2
+PREFILL_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 
 
 def check(cond, msg):
@@ -115,8 +157,13 @@ def median_ms(fn, flush, reps):
     return statistics.median(times)
 
 
-def bound_ms(n_bytes, flops):
-    return max(n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+def bound_ms(n_bytes, flops, flops_per_s=F32_FLOPS):
+    return max(n_bytes / HBM_BYTES_PER_S, flops / flops_per_s) * 1e3
+
+
+def rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
 
 
 def main():
@@ -130,6 +177,7 @@ def main():
     from repro_torch.core import flatten
     from repro_torch.fl.experiment import ExperimentSpec, build_experiment
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import fused_aggregate as fa
     from repro_torch.kernels import fused_dequant as fdq
     from repro_torch.kernels import fused_memory as fm
@@ -184,7 +232,8 @@ def main():
 
     max_err = dict.fromkeys(("fused_aggregate", "row_stream", "fused_memory_update",
                              "memory_stream", "fused_dequant_aggregate", "relay_mix",
-                             "block_relay_mix", "block_fused_aggregate", "block_row_stream"),
+                             "block_relay_mix", "block_fused_aggregate", "block_row_stream",
+                             "flash_attention"),
                             0.0)
     for dtype in (torch.float32, torch.bfloat16):
         for n_ in (4, 10, 33):
@@ -341,6 +390,44 @@ def main():
               f"block segments vs monolithic {dtype}")
         print(f"[kernels] block_row_stream {str(dtype)[6:]} over the 61 segments == "
               f"block_fused_aggregate at n=10 (C=2, m=5) d={d_full}: bitwise")
+
+    # kernel 10, causal flash attention, against its plain version; T=192
+    # is a ragged tail at the kernel's 128-row query tiles
+    def flash_check(got, want, launched, what):
+        tol = FLASH_TOL[want.dtype]
+        check(launched == 1, f"flash_attention {what}: launches moved by {launched}, not 1")
+        check(got.shape == want.shape and got.dtype == want.dtype, f"flash_attention {what}: "
+              f"{tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+        e = (got.float() - want.float()).abs()
+        check(bool(torch.all(e <= tol + tol * want.float().abs())),
+              f"flash_attention {what}: disagrees with its plain version by {float(e.max())}")
+        max_err["flash_attention"] = max(max_err["flash_attention"], float(e.max()))
+        print(f"[kernels] flash_attention {what} max_abs_err={float(e.max()):.3e} "
+              f"(atol = rtol = {tol}), launches +{launched}")
+
+    def heads_first(x):
+        B_, T_, H_, D_ = x.shape
+        return x.transpose(1, 2).reshape(B_ * H_, T_, D_).contiguous()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64)):
+            q, k, v = (torch.randn(shape, generator=g).to(dtype).to(dev) for _ in range(3))
+            before = fl.flash_attention_cuda.launches
+            got = fl.flash_attention_cuda(q, k, v)
+            flash_check(got, fl.flash_attention_plain(q, k, v),
+                        fl.flash_attention_cuda.launches - before,
+                        f"{str(dtype)[6:]} (BH, T, D)={shape}")
+        # the GQA entry point: 16 query heads over 8 kv heads, (B, T, H, D)
+        q = torch.randn(2, 256, 16, 64, generator=g).to(dtype).to(dev)
+        k, v = (torch.randn(2, 256, 8, 64, generator=g).to(dtype).to(dev) for _ in range(2))
+        before = fl.flash_attention_cuda.launches
+        got = ops.flash_attention(q, k, v)
+        launched = fl.flash_attention_cuda.launches - before
+        want = fl.flash_attention_plain(heads_first(q), heads_first(k.repeat_interleave(2, 2)),
+                                        heads_first(v.repeat_interleave(2, 2)))
+        flash_check(heads_first(got), want, launched,
+                    f"{str(dtype)[6:]} ops.flash_attention GQA B=2 T=256 H=16 KV=8 D=64")
+    del q, k, v, got, want
     torch.cuda.synchronize()
 
     # -- 4. the main path at full width ------------------------------------
@@ -449,7 +536,8 @@ def main():
                 "fused_dequant_aggregate": fdq.fused_dequant_aggregate_cuda,
                 "relay_mix": rm.relay_mix_cuda, "block_relay_mix": rb.block_relay_mix_cuda,
                 "block_fused_aggregate": rb.block_fused_aggregate_cuda,
-                "block_row_stream": rb.block_row_stream_cuda}
+                "block_row_stream": rb.block_row_stream_cuda,
+                "flash_attention": fl.flash_attention_cuda}
 
     def drive(label, strategy, options, segment_d, *, channel="static", expect, make=None,
               layout=(N_LEAVES, D_FULL)):
@@ -839,6 +927,184 @@ def main():
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"[profile] top host: {e.key[:70]:70s} calls={e.count:6d} "
               f"ms={e.self_cpu_time_total / 1e3:9.2f}")
+
+    # -- 7. seamless-m4t-large-v2 at full width: prefill and serving -------
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import build as build_model
+    from repro_torch.models import count_params, encdec
+
+    torch.cuda.empty_cache()
+    s_cfg = get_arch(SEAMLESS).full()
+    bundle = build_model(s_cfg)
+    sgen = torch.Generator(device=dev).manual_seed(0)
+    t = time.perf_counter()
+    sparams = bundle.init(sgen)
+    torch.cuda.synchronize()
+    print(f"[seamless] {s_cfg.name} full(): {s_cfg.n_encoder_layers}+{s_cfg.n_layers} layers, "
+          f"d_model {s_cfg.d_model}, {s_cfg.n_heads} heads of {s_cfg.hd}, d_ff {s_cfg.d_ff}, "
+          f"vocab {s_cfg.vocab_size}, {s_cfg.dtype}: {count_params(sparams):,} params drawn in "
+          f"{time.perf_counter() - t:.2f} s")
+    frames = torch.randn((PF_B, s_cfg.frontend_tokens, s_cfg.d_model), generator=sgen, device=dev)
+    tokens = torch.randint(0, s_cfg.vocab_size, (PF_B, PF_T), generator=sgen, device=dev)
+    batch = {"prefix": frames, "tokens": tokens}
+
+    def counted(label, fn, expect):
+        """``fn()`` with every launch count set to 0 just before and read
+        just after; ``expect`` names the kernels it must have launched."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        check(launched == expect, f"{label}: launches {launched}, expected {expect}")
+        return out, secs, launched
+
+    def cut(params, depth):
+        return {k: (tree.map(lambda x: x[:depth], v) if k in ("encoder", "decoder") else v)
+                for k, v in params.items()}
+
+    n_dec = s_cfg.n_layers
+    with torch.inference_mode():
+        prefill = build_step(bundle, "prefill")
+        pf_s = []
+        for i in range(2):  # the first call also sets up cuBLAS
+            torch.cuda.reset_peak_memory_stats()
+            logits, secs, launched = counted("seamless prefill", lambda: prefill(sparams, batch),
+                                             {"flash_attention": n_dec})
+            pf_s.append(secs)
+        flash_launches = launched["flash_attention"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(tuple(logits.shape) == (PF_B, s_cfg.vocab_size) and logits.dtype == s_cfg.tdtype
+              and bool(torch.isfinite(logits.float()).all()),
+              f"seamless prefill logits {tuple(logits.shape)} {logits.dtype}: not finite "
+              f"{s_cfg.dtype} ({PF_B}, {s_cfg.vocab_size})")
+        plain, plain_s, _ = counted("seamless plain prefill", lambda: bundle.forward(
+            sparams, batch, use_flash=False)[:, -1, :].contiguous(), {})
+        deep_rel = rel_l2(logits, plain)
+        print(f"[seamless] prefill step, {PF_B} requests x ({s_cfg.frontend_tokens} frames + "
+              f"{PF_T}-token prompt): {1e3 * pf_s[1]:.1f} ms (first call {1e3 * pf_s[0]:.1f} ms), "
+              f"flash_attention launches {flash_launches}, peak memory {peak_gb:.2f} GB "
+              f"(torch.cuda.max_memory_allocated); plain path (chunked causal) "
+              f"{1e3 * plain_s:.1f} ms; last logits finite, flash vs plain relative L2 at all "
+              f"{n_dec} layers {deep_rel:.3e} (chaotic in depth, see PREFILL_TOL) [{card}]")
+        del logits, plain
+        # the comparison at a depth cut, bf16 and f32
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg_d = s_cfg.replace(dtype=str(dtype)[6:], n_layers=CMP_DEPTH,
+                                  n_encoder_layers=CMP_DEPTH)
+            b_d = build_model(cfg_d)
+            p_d = tree.map(lambda x: x.to(dtype), cut(sparams, CMP_DEPTH))
+            lf, _, _ = counted("depth-cut prefill", lambda: build_step(b_d, "prefill")(p_d, batch),
+                               {"flash_attention": CMP_DEPTH})
+            lp, _, _ = counted("depth-cut plain prefill", lambda: b_d.forward(
+                p_d, batch, use_flash=False)[:, -1, :].contiguous(), {})
+            r = rel_l2(lf, lp)
+            check(r <= PREFILL_TOL[dtype], f"seamless prefill at depth {CMP_DEPTH}, "
+                  f"{dtype}: flash vs plain relative L2 {r}")
+            print(f"[seamless] prefill at depth {CMP_DEPTH} (full width, same shapes), "
+                  f"{str(dtype)[6:]}: flash vs plain last logits relative L2 {r:.3e} "
+                  f"(tol {PREFILL_TOL[dtype]}), max abs "
+                  f"{float((lf.float() - lp.float()).abs().max()):.3e}")
+            del lf, lp, p_d
+        torch.cuda.empty_cache()
+
+        # the serving path of python -m repro_torch.launch.serve
+        res, serve_s, launched = counted("seamless serve", lambda: serve(
+            SEAMLESS, batch=SV_B, prompt_len=SV_P, gen=SV_G, device=dev, params=sparams,
+            log=lambda line: print(f"[serve] {line}")), {"flash_attention": n_dec})
+        check(tuple(res.tokens.shape) == (SV_B, SV_G) and int(res.tokens.min()) >= 0
+              and int(res.tokens.max()) < s_cfg.vocab_size, f"served tokens {res.tokens.shape}")
+        check(bool(torch.isfinite(res.prefill_logits.float()).all())
+              and bool(torch.isfinite(res.replay_logits.float()).all()), "serve logits not finite")
+        print(f"[serve] {SV_B} requests, {SV_P}-token prompt replayed through the serve step, "
+              f"{SV_G} greedy tokens: prefill {1e3 * res.prefill_s:.2f} ms, replay "
+              f"{1e3 * res.replay_s:.2f} ms, decode {res.decode_ms_per_step:.3f} ms/step, "
+              f"{res.tokens_per_s:.1f} tok/s, flash launches {launched}; prefill vs replay last "
+              f"logits relative L2 at all {n_dec} layers "
+              f"{rel_l2(res.prefill_logits, res.replay_logits):.3e} [{card}]")
+        # decode consistency (tests/test_decode_consistency.py's check) at
+        # the depth cut: the prefill step's last logits against the last
+        # replayed serve step on the same prompt
+        for dtype, depth in ((torch.bfloat16, 1), (torch.float32, CMP_DEPTH)):
+            cfg_d = s_cfg.replace(dtype=str(dtype)[6:], n_layers=depth, n_encoder_layers=depth)
+            b_d = build_model(cfg_d)
+            p_d = tree.map(lambda x: x.to(dtype), cut(sparams, depth))
+            sv_batch = {"prefix": res.frames, "tokens": res.prompts}
+            pre = build_step(b_d, "prefill")(p_d, sv_batch)
+            step = build_step(b_d, "decode")
+            cache = b_d.init_cache(SV_B, SV_P, s_cfg.frontend_tokens, device=dev)
+            cache["memory"] = encdec.encode(cfg_d, p_d, res.frames)
+            for t_ in range(SV_P):
+                last, cache = step(p_d, cache, res.prompts[:, t_:t_ + 1], t_)
+            r = rel_l2(last, pre)
+            check(r <= PREFILL_TOL[dtype], f"decode replay vs prefill at depth {depth}, "
+                  f"{dtype}: relative L2 {r}")
+            print(f"[serve] decode consistency at depth {depth} (full width), {str(dtype)[6:]}: "
+                  f"replayed serve step vs prefill step last logits relative L2 {r:.3e} "
+                  f"(tol {PREFILL_TOL[dtype]})")
+            del cache, p_d
+
+        # where a prefill and a decode step spend their time
+        sv_prefill, sv_step = build_step(bundle, "prefill"), build_step(bundle, "decode")
+        sv_cache = bundle.init_cache(SV_B, SV_P + SV_G, s_cfg.frontend_tokens, device=dev)
+        sv_cache["memory"] = encdec.encode(s_cfg, sparams, res.frames)
+        tok = res.prompts[:, :1]
+        for label, fn in (
+                (f"one prefill step ({PF_B} x {PF_T} tokens)", lambda: prefill(sparams, batch)),
+                (f"{SV_P} serve steps ({SV_B} requests)", lambda: [
+                    sv_step(sparams, sv_cache, tok, t_) for t_ in range(SV_P)])):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            print(f"[profile] {label} under torch.profiler: wall {wall_ms:.1f} ms, device busy "
+                  f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
+                  f"{sum(e.count for e in kernels)} kernels [{card}]")
+            for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
+                print(f"[profile] top device: {e.key[:70]:70s} calls={e.count:6d} "
+                      f"ms={e.self_device_time_total / 1e3:9.2f}")
+        del sv_cache
+    torch.cuda.empty_cache()
+
+    # -- 8. kernel 10 at the prefill shape ----------------------------------
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    BH, T_, D_ = PF_B * s_cfg.n_heads, PF_T, s_cfg.hd
+    q, k, v = (torch.randn(BH, T_, D_, generator=g).to(torch.bfloat16).to(dev) for _ in range(3))
+    before = fl.flash_attention_cuda.launches
+    got = fl.flash_attention_cuda(q, k, v)
+    flash_check(got, fl.flash_attention_plain(q, k, v), fl.flash_attention_cuda.launches - before,
+                f"bf16 (BH, T, D)=({BH}, {T_}, {D_}), the prefill's shape")
+    del got
+    q4, k4, v4 = (x.view(PF_B, s_cfg.n_heads, T_, D_) for x in (q, k, v))
+    fl_flops = 4 * BH * D_ * T_ * (T_ + 1) // 2
+    fl_bytes = 4 * BH * T_ * D_ * 2
+    fl_times = dict(
+        ms=median_ms(lambda: fl.flash_attention_cuda(q, k, v), flush, 20),
+        plain_ms=median_ms(lambda: fl.flash_attention_plain(q, k, v), flush, 5),
+        library_ms=median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), flush, 50),
+        bound_ms=bound_ms(fl_bytes, fl_flops, BF16_FLOPS))
+    rows.append(dict(name="flash_attention", route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:64",
+                     launches=flash_launches, max_abs_err=max_err["flash_attention"],
+                     bound_by="operations" if fl_flops / BF16_FLOPS > fl_bytes / HBM_BYTES_PER_S
+                     else "bytes", **fl_times))
+    print(f"[time] flash_attention (one launch, BH={BH} T={T_} D={D_} bf16, causal; "
+          f"{fl_flops / 1e9:.1f} GFLOP, {fl_bytes / 1e6:.1f} MB): kernel {fl_times['ms']:.4f} ms "
+          f"({fl_flops / fl_times['ms'] / 1e9:.1f} TFLOP/s), bound {fl_times['bound_ms']:.4f} ms "
+          f"(operations at {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16), plain {fl_times['plain_ms']:.4f} "
+          f"ms, library (scaled_dot_product_attention, is_causal) {fl_times['library_ms']:.4f} ms "
+          f"[{card}]")
 
     print(card)
     print(json.dumps({"kernels": rows}))

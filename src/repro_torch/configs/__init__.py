@@ -1,1 +1,3 @@
-"""Experiment configurations (the paper's own setup)."""
+"""Configurations: the paper's FL experiment setup (``colrel_paper``,
+``channels``) and the model zoo's architectures (``base`` and one module
+per ported arch)."""

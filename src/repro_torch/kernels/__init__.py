@@ -9,6 +9,8 @@ and the device dispatch in :mod:`repro_torch.kernels.ops`.
 * ``relay_block`` — the clustered (block-sparse) relay mix, aggregation
   and segment stream over ``(C, m, m)`` blocks; ``relay_mix`` — the
   dense relay mix for a given mask, the same kernel with one cluster.
+* ``flash_attention`` — the model zoo's causal self-attention (online
+  softmax, dead kv tiles skipped) over ``(BH, T, D)``.
 
 Sources are in ``csrc/`` and are compiled by :mod:`.build` at first use.
 """

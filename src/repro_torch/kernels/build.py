@@ -25,7 +25,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "find_nvcc", "library"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "fused_aggregate.cu", _CSRC / "fused_memory.cu",
-           _CSRC / "relay_block.cu")
+           _CSRC / "relay_block.cu", _CSRC / "flash_attention.cu")
 _HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "repro_block_relay_mix": (_P, _P, _P, _P, _I, _I, _I64, _I, _P),
     # (mix, x, out, n, d, dtype, stream)
     "repro_relay_mix": (_P, _P, _P, _I, _I64, _I, _P),
+    # (q, k, v, out, BH, T, D, dtype, stream)
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -22,12 +22,16 @@ The ``block_*`` functions are the clustered twins: the relay weights and
 the D2D realizations come as ``(C, m, m)`` blocks, the per-round operand
 is :func:`block_collapsed_weight_row`, and the dense (n, n) mask never
 exists (see :mod:`repro_torch.kernels.relay_block`).
+
+:func:`flash_attention` is the model zoo's causal self-attention over
+``(B, T, H, D)`` (see :mod:`repro_torch.kernels.flash_attention`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as fl
 from repro_torch.kernels import fused_aggregate as fa
 from repro_torch.kernels import fused_dequant as fdq
 from repro_torch.kernels import fused_memory as fm
@@ -52,6 +56,7 @@ __all__ = [
     "block_collapsed_weight_row",
     "block_fused_aggregate",
     "block_row_stream",
+    "flash_attention",
 ]
 
 
@@ -153,3 +158,39 @@ def block_row_stream(w: torch.Tensor, segment: torch.Tensor, *,
     if _on_cpu(segment):
         return rb.block_row_stream_plain(w, segment)
     return rb.block_row_stream_cuda(w, segment, block_d=block_d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
+    """q (B, T, H, D), k/v (B, T, KV, D) -> (B, T, H, D) causal attention.
+
+    Grouped kv heads are broadcast to H (as ``jnp.repeat`` on the head
+    axis).  ``block_q``/``block_kv`` keep the reference's rule that T is a
+    whole number of ``min(block, T)`` blocks; the kernel's own tiles are
+    fixed and it would take any T."""
+    if not causal:
+        raise ValueError("flash_attention: only causal self-attention is kernelized")
+    B, T, H, D = q.shape
+    KV = k.shape[2]
+    if k.shape[1] != T or v.shape[1] != T:
+        raise ValueError(f"flash_attention: self-attention takes S == T, got q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)}")
+    if H % KV:
+        raise ValueError(f"flash_attention: {H} query heads over {KV} kv heads")
+    if KV != H:
+        k = torch.repeat_interleave(k, H // KV, dim=2)
+        v = torch.repeat_interleave(v, H // KV, dim=2)
+    bq, bkv = min(block_q, T), min(block_kv, T)
+    if T % bq or T % bkv:
+        raise ValueError(f"flash_attention: T={T} is not a whole number of blocks "
+                         f"(block_q={bq}, block_kv={bkv}), as the reference kernel requires")
+
+    def heads_first(x):
+        return x.transpose(1, 2).reshape(B * H, T, D).contiguous()
+
+    qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
+    if _on_cpu(qf):
+        out = fl.flash_attention_plain(qf, kf, vf)
+    else:
+        out = fl.flash_attention_cuda(qf, kf, vf)
+    return out.reshape(B, H, T, D).transpose(1, 2)

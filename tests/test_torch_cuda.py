@@ -7,12 +7,16 @@ exactly to f32).  The kernels run the plain versions' arithmetic in the
 same order, so in practice they agree to the bit; segmented memory runs
 are held to the monolithic kernel at 0.  The clustered kernels and the
 dense relay mix are held to their plain versions, to the dense kernels at
-C = 1 and segments to the monolithic pass, all bitwise.
+C = 1 and segments to the monolithic pass, all bitwise.  Causal flash
+attention is held to its plain version (the dense softmax) at atol = rtol
+= 2e-5 in f32 (the reference's bound for its kernel) and 2e-2 in bf16,
+compared in f32: the online softmax sums in another order.
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fl
 from repro_torch.kernels import fused_aggregate as fa
 from repro_torch.kernels import fused_dequant as fdq
 from repro_torch.kernels import fused_memory as fm
@@ -266,3 +270,49 @@ def test_block_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="m <= 110"):
         big = torch.zeros(1, 111, 111, device=dev)
         rb.block_relay_mix_cuda(big, big, torch.zeros(111, 8, device=dev))
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64),
+                                   (3, 1, 64), (5, 77, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, shape, dtype):
+    """The chip-smoke shapes (T=192 is a ragged tail at the kernel's
+    128-row tiles) and two more ragged ones."""
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(dev) for _ in range(3))
+    before = fl.flash_attention_cuda.launches
+    got = fl.flash_attention_cuda(q, k, v)
+    want = fl.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fl.flash_attention_cuda.launches == before + 1
+    assert got.shape == shape and got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_gqa_entry_point_launches_once(dev):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 256, 16, 64, generator=g).to(dev)
+    k, v = (torch.randn(2, 256, 8, 64, generator=g).to(dev) for _ in range(2))
+    before = fl.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v)
+    assert fl.flash_attention_cuda.launches == before + 1
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.randn(2, 128, 64, device=dev)
+    with pytest.raises(TypeError):
+        fl.flash_attention_cuda(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.randn(2, 128, 48, device=dev)
+        fl.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        x = torch.randn(2, 128, 128, device=dev)[:, :, ::2]
+        fl.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="share shape"):
+        fl.flash_attention_cuda(q, q[:, :64].contiguous(), q)

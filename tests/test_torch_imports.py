@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.fl import experiment, trainer
+from repro_torch.launch import serve
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -40,7 +41,11 @@ def test_importing_every_port_module_loads_no_jax():
                      .removesuffix(".__init__") for p in PORT.rglob("*.py"))
     assert {"repro_torch.core.blocks", "repro_torch.channel.clustered",
             "repro_torch.kernels.relay_block", "repro_torch.kernels.relay_mix",
-            "repro_torch.strategies.clustered"} <= set(modules)
+            "repro_torch.strategies.clustered", "repro_torch.models.attention",
+            "repro_torch.models.mlp", "repro_torch.models.encdec", "repro_torch.models.registry",
+            "repro_torch.configs.base", "repro_torch.configs.seamless_m4t_large_v2",
+            "repro_torch.launch", "repro_torch.launch.steps", "repro_torch.launch.serve",
+            "repro_torch.kernels.flash_attention"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
@@ -57,3 +62,7 @@ def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trainer.resolve_device(None)
     assert trainer.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve("seamless-m4t-large-v2", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke"])
