@@ -52,11 +52,27 @@ each of which fails the run by raising:
    depth cut;
 8. kernel 10 (causal flash attention) timed at the prefill shape beside
    its bound, its plain version and PyTorch's
-   scaled_dot_product_attention.
+   scaled_dot_product_attention;
+9. serving jamba-1.5-large-398b at full width and one period (8 layers: 1
+   attention with 64 query heads over 8 kv heads, 7 Mamba; dense SwiGLU
+   MLPs, no experts; bf16, the port's own init from a seed; the seamless
+   params freed first): the prefill step on 4 requests of 4096 tokens (1
+   flash_attention and 7 ssd_scan launches a prefill, counted), its time
+   and peak memory, and the plain path's; every mixer of the period
+   through its kernel against its plain version on the same input; the
+   serving CLI's path on 4 requests (128-token prompt replayed through the
+   serve step, 32 greedy tokens); a profile of a prefill and of decode
+   steps; then in f32 the whole period at 1 x 1024, kernel path against
+   plain path, and the served prompt's prefill against its replay;
+10. kernel 11 (the chunked SSD recurrence) timed at the prefill shape
+   beside its bound and its plain version.
 
 Phase 3 also holds kernel 10 against its plain version at (BH, T, D) in
 {(2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64)}, f32 and
-bf16, and through the GQA entry point (16 query heads over 8 kv heads).
+bf16, and through the GQA entry point (16 query heads over 8 kv heads);
+and kernel 11 at (BH, T, Dk, Dv) in {(2, 128, 8, 16), (1, 64, 4, 4),
+(3, 96, 16, 32)} with chunks of 16 and 32, and at the jamba prefill's
+(1024, 4096, 16, 64) with chunks of 64, f32 and bf16.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -123,6 +139,22 @@ SV_B, SV_P, SV_G = 4, 64, 32
 # 1; f32 at CMP_DEPTH.
 CMP_DEPTH = 2
 PREFILL_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+# Kernel 11 against its plain version: the reference's bound for its kernel
+# in f32 (tests/test_kernels.py:96), 2e-2 in bf16 (the output is rounded to
+# bf16 on both sides), compared in f32; both compute in f32 and sum the
+# products in another order.
+SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+JAMBA = "jamba-1.5-large-398b"
+# jamba at full width, one period (1 attention + 7 Mamba layers, dense MLPs:
+# depth 72 -> 8, moe_every 2 -> 0); the prefill cut from prefill_32k's 32 x
+# 32768 to 4 x 4096 (the plain path's chunked attention logits alone would
+# be 34 GB a chunk at T = 32768), whose (B*H, T, Dk, Dv) SSD shape is
+# SSD_PREFILL_SHAPE; the serving path at 4 requests, a 128-token prompt
+# replayed, 32 greedy tokens; the whole period in f32 at 1 x 1024
+JB_B, JB_T = 4, 4096
+SSD_PREFILL_SHAPE = (JB_B * 256, JB_T, 16, 64)
+JB_SV_P, JB_SV_G = 128, 32
+JB_F32_T = 1024
 
 
 def check(cond, msg):
@@ -184,6 +216,7 @@ def main():
     from repro_torch.kernels import ops
     from repro_torch.kernels import relay_block as rb
     from repro_torch.kernels import relay_mix as rm
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models.cnn import CNN
 
     dev = torch.device("cuda")
@@ -233,7 +266,7 @@ def main():
     max_err = dict.fromkeys(("fused_aggregate", "row_stream", "fused_memory_update",
                              "memory_stream", "fused_dequant_aggregate", "relay_mix",
                              "block_relay_mix", "block_fused_aggregate", "block_row_stream",
-                             "flash_attention"),
+                             "flash_attention", "ssd_scan"),
                             0.0)
     for dtype in (torch.float32, torch.bfloat16):
         for n_ in (4, 10, 33):
@@ -428,6 +461,35 @@ def main():
         flash_check(heads_first(got), want, launched,
                     f"{str(dtype)[6:]} ops.flash_attention GQA B=2 T=256 H=16 KV=8 D=64")
     del q, k, v, got, want
+
+    # kernel 11, the chunked SSD recurrence, against its plain version: the
+    # reference test's shapes and chunks, and the jamba prefill's own shape
+    def ssd_check(shape, chunk, dtype):
+        BH_, T_, Dk_, Dv_ = shape
+        q_, k_ = (torch.randn(BH_, T_, Dk_, generator=g).to(dtype).to(dev) for _ in range(2))
+        v_ = torch.randn(BH_, T_, Dv_, generator=g).to(dtype).to(dev)
+        ld_ = (-torch.rand(BH_, T_, generator=g)).to(dev)
+        before = ssd.ssd_scan_cuda.launches
+        got_ = ssd.ssd_scan_cuda(q_, k_, v_, ld_, chunk=chunk)
+        launched = ssd.ssd_scan_cuda.launches - before
+        want_ = ssd.ssd_scan_plain(q_, k_, v_, ld_, chunk=chunk)
+        what = f"{str(dtype)[6:]} (BH, T, Dk, Dv)={shape} chunk={chunk}"
+        tol = SSD_TOL[dtype]
+        check(launched == 1, f"ssd_scan {what}: launches moved by {launched}, not 1")
+        check(got_.shape == want_.shape and got_.dtype == want_.dtype, f"ssd_scan {what}: "
+              f"{tuple(got_.shape)} {got_.dtype} vs {tuple(want_.shape)} {want_.dtype}")
+        e = (got_.float() - want_.float()).abs()
+        check(bool(torch.all(e <= tol + tol * want_.float().abs())),
+              f"ssd_scan {what}: disagrees with its plain version by {float(e.max())}")
+        max_err["ssd_scan"] = max(max_err["ssd_scan"], float(e.max()))
+        print(f"[kernels] ssd_scan {what} max_abs_err={float(e.max()):.3e} "
+              f"(atol = rtol = {tol}), launches +{launched}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 128, 8, 16), (1, 64, 4, 4), (3, 96, 16, 32)):
+            for chunk in (16, 32):
+                ssd_check(shape, chunk, dtype)
+        ssd_check(SSD_PREFILL_SHAPE, 64, dtype)
     torch.cuda.synchronize()
 
     # -- 4. the main path at full width ------------------------------------
@@ -537,7 +599,7 @@ def main():
                 "relay_mix": rm.relay_mix_cuda, "block_relay_mix": rb.block_relay_mix_cuda,
                 "block_fused_aggregate": rb.block_fused_aggregate_cuda,
                 "block_row_stream": rb.block_row_stream_cuda,
-                "flash_attention": fl.flash_attention_cuda}
+                "flash_attention": fl.flash_attention_cuda, "ssd_scan": ssd.ssd_scan_cuda}
 
     def drive(label, strategy, options, segment_d, *, channel="static", expect, make=None,
               layout=(N_LEAVES, D_FULL)):
@@ -1105,6 +1167,202 @@ def main():
           f"(operations at {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16), plain {fl_times['plain_ms']:.4f} "
           f"ms, library (scaled_dot_product_attention, is_causal) {fl_times['library_ms']:.4f} ms "
           f"[{card}]")
+
+    del q, k, v, q4, k4, v4, sparams, bundle, res, batch, frames, tokens
+    torch.cuda.empty_cache()
+
+    # -- 9. jamba-1.5-large-398b at full width, one period: prefill, serving -
+    from repro_torch.models import hybrid, mamba
+    from repro_torch.models.attention import attention as attention_mixer
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.mlp import apply_mlp
+
+    j_cfg = get_arch(JAMBA).full().replace(n_layers=8, moe_every=0)
+    j_bundle = build_model(j_cfg)
+    period = j_cfg.attn_every
+    n_mamba = period - 1
+    jgen = torch.Generator(device=dev).manual_seed(0)
+    t = time.perf_counter()
+    jparams = j_bundle.init(jgen)
+    torch.cuda.synchronize()
+    n_params = count_params(jparams)
+    print(f"[jamba] {j_cfg.name} full() at one period: {j_cfg.n_layers} layers (1 attention + "
+          f"{n_mamba} Mamba, dense SwiGLU MLPs), d_model {j_cfg.d_model}, {j_cfg.n_heads} heads "
+          f"of {j_cfg.hd} over {j_cfg.n_kv_heads} kv heads, d_ff {j_cfg.d_ff}, vocab "
+          f"{j_cfg.vocab_size}, d_inner {j_cfg.d_inner} as {j_cfg.n_ssm_heads} SSM heads of "
+          f"{j_cfg.d_inner // j_cfg.n_ssm_heads}, d_state {j_cfg.ssm_d_state}, chunk "
+          f"{j_cfg.ssm_chunk}, {j_cfg.dtype}: {n_params:,} params "
+          f"({2 * n_params / 1e9:.2f} GB) drawn in {time.perf_counter() - t:.2f} s")
+    check((JB_B * j_cfg.n_ssm_heads, JB_T, j_cfg.ssm_d_state,
+           j_cfg.d_inner // j_cfg.n_ssm_heads) == SSD_PREFILL_SHAPE,
+          f"the prefill's SSD shape is not {SSD_PREFILL_SHAPE}")
+    j_tokens = torch.randint(0, j_cfg.vocab_size, (JB_B, JB_T), generator=jgen, device=dev)
+    j_batch = {"tokens": j_tokens}
+    j_expect = {"flash_attention": 1, "ssd_scan": n_mamba}
+    with torch.inference_mode():
+        j_prefill = build_step(j_bundle, "prefill")
+        jpf_s = []
+        for i in range(3):  # the first call also sets up cuBLAS
+            torch.cuda.reset_peak_memory_stats()
+            j_logits, secs, launched = counted("jamba prefill",
+                                               lambda: j_prefill(jparams, j_batch), j_expect)
+            jpf_s.append(secs)
+        j_launches = launched
+        j_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(tuple(j_logits.shape) == (JB_B, j_cfg.vocab_size) and j_logits.dtype == j_cfg.tdtype
+              and bool(torch.isfinite(j_logits.float()).all()),
+              f"jamba prefill logits {tuple(j_logits.shape)} {j_logits.dtype}: not finite "
+              f"{j_cfg.dtype} ({JB_B}, {j_cfg.vocab_size})")
+        j_plain, j_plain_s, _ = counted("jamba plain prefill", lambda: j_bundle.forward(
+            jparams, j_batch, use_flash=False)[:, -1, :].contiguous(), {})
+        print(f"[jamba] prefill step, {JB_B} requests x {JB_T} tokens: "
+              f"{1e3 * statistics.median(jpf_s[1:]):.1f} ms (median of calls 2-3: "
+              f"{[round(1e3 * x, 1) for x in jpf_s[1:]]}, first call {1e3 * jpf_s[0]:.1f} ms), "
+              f"launches {j_launches}, peak memory {j_peak_gb:.2f} GB "
+              f"(torch.cuda.max_memory_allocated); plain path (chunked causal attention, "
+              f"ssd_scan_plain) {1e3 * j_plain_s:.1f} ms, no launches; last logits finite, kernel "
+              f"vs plain relative L2 {rel_l2(j_logits, j_plain):.3e} [{card}]")
+        del j_logits, j_plain
+
+        # every mixer of the period at full width, through its kernel and
+        # through its plain version on the same normalised input; the residual
+        # stream goes on with the kernel's output
+        pp = {k_: tree.map(lambda x: x[0], v_) for k_, v_ in jparams["periods"].items()}
+        x = jparams["embed"][j_tokens]
+        for j in range(period):
+            mix, key = pp["mixers"][f"l{j}"], f"l{j}"
+            xn = apply_norm(j_cfg, pp["norms1"][key], x)
+            if j == 0:
+                hk, _, got = counted("attention mixer", lambda: attention_mixer(
+                    j_cfg, mix, xn, use_flash=True), {"flash_attention": 1})
+                hp = attention_mixer(j_cfg, mix, xn, use_flash=False)
+                what = "attention (flash_attention vs chunked causal attention)"
+            else:
+                (hk, _), _, got = counted("mamba mixer", lambda: mamba.mamba_forward(
+                    j_cfg, mix, xn), {"ssd_scan": 1})
+                hp, _ = mamba.mamba_forward(j_cfg, mix, xn, ssd_kernel=False)
+                what = "Mamba (ssd_scan vs ssd_scan_plain)"
+            r = rel_l2(hk, hp)
+            check(r <= PREFILL_TOL[torch.bfloat16], f"jamba layer {j} mixer: kernel vs plain "
+                  f"relative L2 {r}")
+            print(f"[jamba] layer {j} {what}, bf16 {JB_B} x {JB_T}: relative L2 {r:.3e} "
+                  f"(tol {PREFILL_TOL[torch.bfloat16]}), max abs "
+                  f"{float((hk.float() - hp.float()).abs().max()):.3e}, launches {got}")
+            x = x + hk
+            x = x + apply_mlp(j_cfg, pp["ffns"][key], apply_norm(j_cfg, pp["norms2"][key], x))
+            del hk, hp, xn
+        del x, pp
+
+        # the serving path of python -m repro_torch.launch.serve, bf16
+        j_res, _, sv_launched = counted("jamba serve", lambda: serve(
+            cfg=j_cfg, batch=JB_B, prompt_len=JB_SV_P, gen=JB_SV_G, device=dev, params=jparams,
+            log=lambda line: print(f"[serve] {line}")), j_expect)
+        check(tuple(j_res.tokens.shape) == (JB_B, JB_SV_G) and int(j_res.tokens.min()) >= 0
+              and int(j_res.tokens.max()) < j_cfg.vocab_size and j_res.frames is None,
+              f"jamba served tokens {tuple(j_res.tokens.shape)}")
+        check(bool(torch.isfinite(j_res.prefill_logits.float()).all())
+              and bool(torch.isfinite(j_res.replay_logits.float()).all()),
+              "jamba serve logits not finite")
+        print(f"[serve] jamba {JB_B} requests, {JB_SV_P}-token prompt replayed through the serve "
+              f"step, {JB_SV_G} greedy tokens: prefill {1e3 * j_res.prefill_s:.2f} ms, replay "
+              f"{1e3 * j_res.replay_s:.2f} ms, decode {j_res.decode_ms_per_step:.3f} ms/step, "
+              f"{j_res.tokens_per_s:.1f} tok/s, launches {sv_launched}; bf16 prefill vs replay "
+              f"last logits relative L2 {rel_l2(j_res.prefill_logits, j_res.replay_logits):.3e} "
+              f"[{card}]")
+
+        # where a prefill and a decode step spend their time
+        j_cache = j_bundle.init_cache(JB_B, JB_SV_P + JB_SV_G, device=dev)
+        j_step = build_step(j_bundle, "decode")
+        tok = j_res.prompts[:, :1]
+        for label, fn in (
+                (f"jamba prefill step ({JB_B} x {JB_T} tokens)",
+                 lambda: j_prefill(jparams, j_batch)),
+                (f"jamba {JB_SV_G} serve steps ({JB_B} requests)",
+                 lambda: [j_step(jparams, j_cache, tok, t_) for t_ in range(JB_SV_G)])):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            print(f"[profile] {label} under torch.profiler: wall {wall_ms:.1f} ms, device busy "
+                  f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
+                  f"{sum(e.count for e in kernels)} kernels [{card}]")
+            for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+                print(f"[profile] top device: {e.key[:70]:70s} calls={e.count:6d} "
+                      f"ms={e.self_device_time_total / 1e3:9.2f}")
+        del j_cache
+
+        # the whole period in f32 (1 x 1024: the f32 params take 35.6 GB),
+        # kernel path against plain path; then the served prompt's prefill
+        # against its replay through the serve step, in f32
+        f_cfg = j_cfg.replace(dtype="float32")
+        f_bundle = build_model(f_cfg)
+        fparams = tree.map(lambda x_: x_.float(), jparams)
+        f_batch = {"tokens": j_tokens[:1, :JB_F32_T]}
+        fk, _, got = counted("jamba f32 prefill", lambda: build_step(f_bundle, "prefill")(
+            fparams, f_batch), j_expect)
+        fpl, _, _ = counted("jamba f32 plain prefill", lambda: f_bundle.forward(
+            fparams, f_batch, use_flash=False)[:, -1, :].contiguous(), {})
+        r = rel_l2(fk, fpl)
+        check(r <= PREFILL_TOL[torch.float32], f"jamba f32 period, kernel vs plain: {r}")
+        print(f"[jamba] the whole period in f32, 1 x {JB_F32_T} tokens: kernel vs plain path "
+              f"last logits relative L2 {r:.3e} (tol {PREFILL_TOL[torch.float32]}), max abs "
+              f"{float((fk - fpl).abs().max()):.3e}, launches {got}")
+        f_res, _, _ = counted("jamba f32 serve", lambda: serve(
+            cfg=f_cfg, batch=JB_B, prompt_len=JB_SV_P, gen=1, device=dev, params=fparams,
+            log=None), j_expect)
+        check(torch.equal(f_res.prompts, j_res.prompts), "the f32 serve drew other prompts")
+        r = rel_l2(f_res.replay_logits, f_res.prefill_logits)
+        check(r <= PREFILL_TOL[torch.float32], f"jamba f32 decode replay vs prefill: {r}")
+        print(f"[serve] jamba decode consistency in f32 (full width, one period): the "
+              f"{JB_SV_P}-token prompt replayed through the serve step (ssd_step's recursion, the "
+              f"KV cache) vs the prefill step (ssd_scan from a zero state, flash_attention) last "
+              f"logits relative L2 {r:.3e} (tol {PREFILL_TOL[torch.float32]})")
+        del fparams, fk, fpl, f_res
+    torch.cuda.empty_cache()
+
+    # -- 10. kernel 11 at the prefill shape -----------------------------------
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    BH, T_, Dk_, Dv_ = SSD_PREFILL_SHAPE
+    Q_ = j_cfg.ssm_chunk
+    q, k = (torch.randn(BH, T_, Dk_, generator=jgen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(BH, T_, Dv_, generator=jgen, device=dev, dtype=torch.bfloat16)
+    logd = -torch.rand(BH, T_, generator=jgen, device=dev)
+    # each input read once and the output written once; the products of the
+    # live (s <= t) pairs, the inter-chunk term and the state update
+    ssd_bytes = 2 * (2 * BH * T_ * Dk_ + 2 * BH * T_ * Dv_) + 4 * BH * T_
+    ssd_flops = BH * (T_ // Q_) * (Q_ * (Q_ + 1) * (Dk_ + Dv_) + 4 * Q_ * Dk_ * Dv_)
+    ssd_times = dict(
+        ms=median_ms(lambda: ssd.ssd_scan_cuda(q, k, v, logd, chunk=Q_), flush, 20),
+        plain_ms=median_ms(lambda: ssd.ssd_scan_plain(q, k, v, logd, chunk=Q_), flush, 5),
+        library_ms=None,
+        bound_ms=bound_ms(ssd_bytes, ssd_flops, BF16_FLOPS))
+    # the same work on the views the Mamba mixer passes (q, k broadcast over
+    # the heads, v and y in (B, T, H, P) storage)
+    H_ = j_cfg.n_ssm_heads
+    kv_src = torch.randn(JB_B, T_, 2 * Dk_, generator=jgen, device=dev, dtype=torch.bfloat16)
+    kb, qb = (x_[:, None].expand(JB_B, H_, T_, Dk_) for x_ in kv_src.split(Dk_, dim=-1))
+    vb = torch.randn(JB_B, T_, H_, Dv_, generator=jgen, device=dev,
+                     dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    lb = (-torch.rand(JB_B, T_, H_, generator=jgen, device=dev)).permute(0, 2, 1)
+    views_ms = median_ms(lambda: ssd.ssd_scan_cuda(qb, kb, vb, lb, chunk=Q_), flush, 20)
+    rows.append(dict(name="ssd_scan", route="cuda",
+                     source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     replaces="src/repro/kernels/ssd_scan.py:73",
+                     launches=j_launches["ssd_scan"], max_abs_err=max_err["ssd_scan"],
+                     bound_by="operations" if ssd_flops / BF16_FLOPS > ssd_bytes / HBM_BYTES_PER_S
+                     else "bytes", **ssd_times))
+    print(f"[time] ssd_scan (one launch, (BH, T, Dk, Dv)={SSD_PREFILL_SHAPE} chunk {Q_} bf16; "
+          f"{ssd_flops / 1e9:.1f} GFLOP, {ssd_bytes / 1e9:.3f} GB): kernel {ssd_times['ms']:.4f} "
+          f"ms ({ssd_bytes / ssd_times['ms'] / 1e9:.3f} TB/s), bound {ssd_times['bound_ms']:.4f} "
+          f"ms (bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), plain {ssd_times['plain_ms']:.4f} "
+          f"ms, library null: no single PyTorch call computes the SSD recurrence; on the Mamba "
+          f"mixer's views (q, k broadcast over {H_} heads, v and y in (B, T, H, P) storage) "
+          f"{views_ms:.4f} ms [{card}]")
 
     print(card)
     print(json.dumps({"kernels": rows}))

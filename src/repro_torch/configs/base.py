@@ -3,9 +3,10 @@
 The counterpart of ``repro.configs.base``: the same arch ids, CLI aliases
 and input shapes.  Each ported arch module defines ``full()`` (the
 assigned configuration), ``smoke()`` (a reduced same-family variant) and
-``SHAPES``.  Only seamless-m4t-large-v2 is ported; :func:`get_arch` of
-another known arch raises :class:`NotImplementedError` naming its ROADMAP
-item.
+``SHAPES``.  seamless-m4t-large-v2 and jamba-1.5-large-398b are ported
+(jamba's MoE MLPs are not: its ``full()`` builds only with
+``moe_every=0``); :func:`get_arch` of another known arch raises
+:class:`NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ CLI_ALIASES: Dict[str, str] = {
 }
 
 # arch modules the port has
-PORTED = ("seamless_m4t_large_v2",)
+PORTED = ("seamless_m4t_large_v2", "jamba_1_5_large_398b")
 
 
 @dataclasses.dataclass(frozen=True)

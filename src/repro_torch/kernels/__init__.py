@@ -11,6 +11,8 @@ and the device dispatch in :mod:`repro_torch.kernels.ops`.
   dense relay mix for a given mask, the same kernel with one cluster.
 * ``flash_attention`` — the model zoo's causal self-attention (online
   softmax, dead kv tiles skipped) over ``(BH, T, D)``.
+* ``ssd_scan`` — Mamba2's chunked SSD recurrence from a zero state, the
+  state carried chunk to chunk inside one block.
 
 Sources are in ``csrc/`` and are compiled by :mod:`.build` at first use.
 """

@@ -25,7 +25,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "find_nvcc", "library"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "fused_aggregate.cu", _CSRC / "fused_memory.cu",
-           _CSRC / "relay_block.cu", _CSRC / "flash_attention.cu")
+           _CSRC / "relay_block.cu", _CSRC / "flash_attention.cu", _CSRC / "ssd_scan.cu")
 _HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,6 +54,9 @@ _SIGNATURES = {
     "repro_relay_mix": (_P, _P, _P, _I, _I64, _I, _P),
     # (q, k, v, out, BH, T, D, dtype, stream)
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (q, k, v, log_decay, out, strides[15], BH, H, T, Dk, Dv, chunk, dtype, stream)
+    "repro_ssd_scan": (_P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I, _I, _I, _I, _I, _I, _I,
+                       _P),
 }
 
 

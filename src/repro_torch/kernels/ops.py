@@ -24,7 +24,9 @@ is :func:`block_collapsed_weight_row`, and the dense (n, n) mask never
 exists (see :mod:`repro_torch.kernels.relay_block`).
 
 :func:`flash_attention` is the model zoo's causal self-attention over
-``(B, T, H, D)`` (see :mod:`repro_torch.kernels.flash_attention`).
+``(B, T, H, D)`` (see :mod:`repro_torch.kernels.flash_attention`), and
+:func:`ssd_scan` Mamba2's chunked SSD recurrence over ``(BH, T, D)`` (see
+:mod:`repro_torch.kernels.ssd_scan`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from repro_torch.kernels import fused_dequant as fdq
 from repro_torch.kernels import fused_memory as fm
 from repro_torch.kernels import relay_block as rb
 from repro_torch.kernels import relay_mix as rm
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.fused_aggregate import collapsed_weight_row, mixing_mask
 from repro_torch.kernels.fused_dequant import fold_dequant_scales
 from repro_torch.kernels.relay_block import block_collapsed_weight_row
@@ -57,6 +60,7 @@ __all__ = [
     "block_fused_aggregate",
     "block_row_stream",
     "flash_attention",
+    "ssd_scan",
 ]
 
 
@@ -194,3 +198,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     else:
         out = fl.flash_attention_cuda(qf, kf, vf)
     return out.reshape(B, H, T, D).transpose(1, 2)
+
+
+def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: torch.Tensor, *,
+             chunk: int = 64) -> torch.Tensor:
+    """Chunked SSD recurrence from a zero state (Mamba2's hot loop): q, k
+    (BH, T, Dk), v (BH, T, Dv), log_decay (BH, T) non-positive -> y (BH, T,
+    Dv) in q's dtype.  The leading BH may also come split as (B, H), as
+    strided views (see :mod:`repro_torch.kernels.ssd_scan`).  T must be a
+    whole number of chunks, as the reference kernel requires: both
+    versions raise otherwise."""
+    if _on_cpu(q):
+        return ssd.ssd_scan_plain(q, k, v, log_decay.float(), chunk=chunk)
+    return ssd.ssd_scan_cuda(q, k, v, log_decay.float(), chunk=chunk)

@@ -1,21 +1,25 @@
-"""Batched serving of an encoder-decoder of the model zoo: prefill, then
-greedy KV-cache decode.
+"""Batched serving of a model of the zoo: prefill, then greedy decode
+against the KV cache (and, for the hybrid, the Mamba states).
 
     python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 32] [--device cuda]
 
-The counterpart of ``examples/serve_decode.py`` for seamless-m4t: random
-weights and synthetic frame embeddings ``(B, frames, d_model)`` and
-prompts, all from ``--seed``.  It times
+The counterpart of ``examples/serve_decode.py``: random weights and
+prompts, all from ``--seed``; an encoder-decoder (seamless-m4t) also gets
+synthetic frame embeddings ``(B, frames, d_model)``, a decoder-only model
+(the jamba hybrid, given as ``cfg=``) prompts only.  It times
 
-* the prefill step (last-position logits of the prompt, the decoder's
-  self-attention through the flash-attention kernel);
+* the prefill step (last-position logits of the prompt, through the
+  hand-written kernels: flash attention, and ``ssd_scan`` for Mamba);
 * filling the cache by replaying the prompt through the serve step, as the
   reference does (no prefill there writes a cache);
 * greedy generation of ``--gen`` tokens, the first from the replay's last
   logits and each further one from one serve step.
 
 Runs on CUDA unless ``--device`` names another device.
+``--arch jamba-1.5-large-398b`` resolves the reference's config, whose MoE
+MLPs are not ported: it raises :class:`NotImplementedError`; serve
+``full().replace(moe_every=0)`` through ``serve(cfg=...)``.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.fl.trainer import resolve_device
 from repro_torch.launch.steps import build_step, get_arch_cfg
-from repro_torch.models import build, count_params
+from repro_torch.models import ModelConfig, build, count_params
 from repro_torch.models import encdec
 
 __all__ = ["ServeResult", "serve", "main"]
@@ -37,7 +41,7 @@ __all__ = ["ServeResult", "serve", "main"]
 
 @dataclasses.dataclass
 class ServeResult:
-    frames: torch.Tensor  # (B, frames, d_model) synthetic frame embeddings
+    frames: Optional[torch.Tensor]  # (B, frames, d_model); None for a decoder-only model
     prompts: torch.Tensor  # (B, prompt_len) prompt tokens
     prefill_logits: torch.Tensor  # (B, V) from the prefill step
     replay_logits: torch.Tensor  # (B, V) from the last replayed prompt token
@@ -61,38 +65,47 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(arch: str = "seamless-m4t-large-v2", *, smoke: bool = False, batch: int = 4,
-          prompt_len: int = 32, gen: int = 32, device=None, seed: int = 0,
-          params=None, log: Optional[Callable[[str], None]] = print) -> ServeResult:
-    """Prefill, cache replay and greedy decode of ``batch`` requests;
-    ``params`` (on the device) are drawn from ``seed`` when not given."""
+def serve(arch: str = "seamless-m4t-large-v2", *, cfg: Optional[ModelConfig] = None,
+          smoke: bool = False, batch: int = 4, prompt_len: int = 32, gen: int = 32, device=None,
+          seed: int = 0, params=None,
+          log: Optional[Callable[[str], None]] = print) -> ServeResult:
+    """Prefill, cache replay and greedy decode of ``batch`` requests of the
+    model ``cfg`` (default: ``arch``'s config, its ``smoke()`` under
+    ``smoke``); ``params`` (on the device) are drawn from ``seed`` when
+    not given."""
     dev = resolve_device(device)
-    cfg = get_arch_cfg(arch, smoke=smoke)
+    if cfg is None:
+        cfg = get_arch_cfg(arch, smoke=smoke)
     if prompt_len < 1 or gen < 1:
         raise ValueError(f"prompt_len and gen must be >= 1, got {prompt_len}, {gen}")
     bundle = build(cfg)
     g = torch.Generator(device=dev).manual_seed(seed)
     if params is None:
         params = bundle.init(g)
-    B, P, G, F = batch, prompt_len, gen, cfg.frontend_tokens
-    frames = torch.randn((B, F, cfg.d_model), generator=g, device=dev)
+    B, P, G = batch, prompt_len, gen
+    encoder = cfg.arch_type in ("encdec", "audio")
+    F = cfg.frontend_tokens if encoder else 0
+    frames = torch.randn((B, F, cfg.d_model), generator=g, device=dev) if encoder else None
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
     if log:
         log(f"serving {cfg.name}{' (smoke)' if smoke else ''} on {dev}: "
             f"{count_params(params):,} params, {cfg.dtype}, batch {B}, prompt {P}, "
-            f"{F} frames, gen {G}")
+            f"{f'{F} frames, ' if encoder else ''}gen {G}")
     prefill_step, serve_step = build_step(bundle, "prefill"), build_step(bundle, "decode")
+    batch_in = {"prefix": frames, "tokens": prompts} if encoder else {"tokens": prompts}
 
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        prefill_logits = prefill_step(params, {"prefix": frames, "tokens": prompts})
+        prefill_logits = prefill_step(params, batch_in)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
 
-        cache = bundle.init_cache(B, P + G, F, device=dev)
+        cache = (bundle.init_cache(B, P + G, F, device=dev) if encoder
+                 else bundle.init_cache(B, P + G, device=dev))
         t0 = time.perf_counter()
-        cache["memory"] = encdec.encode(cfg, params, frames)
+        if encoder:
+            cache["memory"] = encdec.encode(cfg, params, frames)
         for t in range(P):
             logits, cache = serve_step(params, cache, prompts[:, t:t + 1], t)
         _sync(dev)
@@ -114,7 +127,8 @@ def serve(arch: str = "seamless-m4t-large-v2", *, smoke: bool = False, batch: in
                       tokens=torch.cat(out, dim=1), prefill_s=prefill_s, replay_s=replay_s,
                       decode_s=decode_s, decode_steps=G - 1)
     if log:
-        log(f"prefill: {P} tokens x {B} seqs + {F} frames in {1e3 * prefill_s:.2f} ms")
+        log(f"prefill: {P} tokens x {B} seqs{f' + {F} frames' if encoder else ''} in "
+            f"{1e3 * prefill_s:.2f} ms")
         log(f"cache replay: {P} serve steps in {1e3 * replay_s:.2f} ms")
         log(f"decode: {G - 1} steps in {1e3 * decode_s:.2f} ms "
             f"({res.decode_ms_per_step:.3f} ms/step, {res.tokens_per_s:.1f} tok/s)")

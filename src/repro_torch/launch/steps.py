@@ -4,8 +4,9 @@ The counterpart of the serving kinds of ``repro.launch.steps.build_step``
 (an input shape's ``kind``, see :data:`repro_torch.configs.base.INPUT_SHAPES`):
 
 * ``prefill`` -> ``prefill_step(params, batch)``: the last-position logits
-  ``(B, V)`` of the prompt, with the decoder's causal self-attention
-  through the flash-attention kernel;
+  ``(B, V)`` of the prompt, with causal self-attention through the
+  flash-attention kernel (and a hybrid's Mamba layers through
+  ``ssd_scan``);
 * ``decode`` -> ``serve_step(params, cache, token, pos)``: one-token
   decode against the KV cache, ``(logits (B, V), cache)``.
 

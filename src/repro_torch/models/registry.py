@@ -9,9 +9,11 @@ The counterpart of ``repro.models.registry``: ``build(cfg)`` returns a
 * ``init_cache(batch, max_len, memory_len) -> cache`` and
   ``decode_step(params, cache, token, pos) -> (logits, cache)``.
 
-Ported: the paper's CNN (:class:`~repro_torch.models.cnn.CNNConfig`) and
-the encoder-decoder (``arch_type`` ``encdec``/``audio``).  The other
-families raise :class:`NotImplementedError` naming their ROADMAP item.
+Ported: the paper's CNN (:class:`~repro_torch.models.cnn.CNNConfig`), the
+encoder-decoder (``arch_type`` ``encdec``/``audio``) and the hybrid
+without MoE MLPs (``hybrid`` with ``moe_every=0``; ``init_cache(batch,
+max_len, device=None)``).  The other families, and a hybrid with MoE
+positions, raise :class:`NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,13 +24,13 @@ from typing import Any, Callable, Optional
 
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["ModelBundle", "build"]
 
 # arch_type -> what porting it takes (ROADMAP.md queue 1, item 17)
 _UNPORTED = {
-    "hybrid": "the hybrid slice (models/ssm.py, mamba.py, hybrid.py and kernel 11, ssd_scan)",
     "dense": "the dense/MoE LMs (models/transformer.py)",
     "moe": "the dense/MoE LMs (models/transformer.py, moe.py)",
     "ssm": "the dense/MoE LMs (models/transformer.py, rwkv.py)",
@@ -42,7 +44,7 @@ class ModelBundle:
     init: Callable  # (generator) -> params
     loss_fn: Callable  # (params, batch, *, use_flash=False) -> (loss, metrics)
     forward: Optional[Callable] = None  # (params, batch, *, use_flash=False) -> logits
-    init_cache: Optional[Callable] = None  # (batch, max_len, memory_len, device=None) -> cache
+    init_cache: Optional[Callable] = None  # (batch, max_len[, memory_len], device=None) -> cache
     decode_step: Optional[Callable] = None  # (params, cache, token, pos) -> (logits, cache)
     has_decode: bool = True
 
@@ -75,6 +77,17 @@ def build(cfg) -> ModelBundle:
             forward=_encdec_forward,
             init_cache=partial(encdec_mod.init_cache, cfg),
             decode_step=partial(encdec_mod.decode_step, cfg),
+        )
+    if cfg.arch_type == "hybrid":
+        hybrid_mod.n_periods(cfg)  # raises for MoE positions and ragged periods
+        return ModelBundle(
+            cfg=cfg,
+            init=partial(hybrid_mod.init_hybrid, cfg),
+            loss_fn=partial(hybrid_mod.loss_fn, cfg),
+            forward=lambda params, batch, **kw: hybrid_mod.forward(
+                cfg, params, batch["tokens"], **kw)[0],
+            init_cache=partial(hybrid_mod.init_cache, cfg),
+            decode_step=partial(hybrid_mod.decode_step, cfg),
         )
     what = _UNPORTED.get(cfg.arch_type)
     if what is None:

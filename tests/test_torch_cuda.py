@@ -10,7 +10,10 @@ dense relay mix are held to their plain versions, to the dense kernels at
 C = 1 and segments to the monolithic pass, all bitwise.  Causal flash
 attention is held to its plain version (the dense softmax) at atol = rtol
 = 2e-5 in f32 (the reference's bound for its kernel) and 2e-2 in bf16,
-compared in f32: the online softmax sums in another order.
+compared in f32: the online softmax sums in another order.  The chunked
+SSD recurrence is held to its plain version at atol = rtol = 5e-4 in f32
+(the reference's bound for its kernel) and 2e-2 in bf16, compared in f32:
+both compute in f32 and sum the products in another order.
 """
 
 import pytest
@@ -23,6 +26,7 @@ from repro_torch.kernels import fused_memory as fm
 from repro_torch.kernels import ops
 from repro_torch.kernels import relay_block as rb
 from repro_torch.kernels import relay_mix as rm
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -316,3 +320,94 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fl.flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="share shape"):
         fl.flash_attention_cuda(q, q[:, :64].contiguous(), q)
+
+
+SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+
+
+def _ssd_inputs(shape, dtype, dev, seed):
+    BH, T, Dk, Dv = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn(BH, T, Dk, generator=g).to(dtype).to(dev) for _ in range(2))
+    v = torch.randn(BH, T, Dv, generator=g).to(dtype).to(dev)
+    return q, k, v, (-torch.rand(BH, T, generator=g)).to(dev)
+
+
+@pytest.mark.parametrize("shape,chunk", [((2, 128, 8, 16), 16), ((2, 128, 8, 16), 32),
+                                         ((1, 64, 4, 4), 16), ((1, 64, 4, 4), 32),
+                                         ((3, 96, 16, 32), 16), ((3, 96, 16, 32), 32),
+                                         ((8, 256, 16, 64), 64), ((2, 128, 32, 64), 64),
+                                         ((2, 30, 5, 8), 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(dev, shape, chunk, dtype):
+    """The reference test's shapes and chunks, jamba's per-head shape
+    (Dk 16, Dv 64, chunk 64), the largest shared-memory case (Dk 32) and a
+    chunk off the 4-row tiles."""
+    q, k, v, logd = _ssd_inputs(shape, dtype, dev, seed=sum(shape) + chunk)
+    before = ssd.ssd_scan_cuda.launches
+    got = ssd.ssd_scan_cuda(q, k, v, logd, chunk=chunk)
+    want = ssd.ssd_scan_plain(q, k, v, logd, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_cuda.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_takes_the_mamba_views(dev, dtype):
+    """(B, H, T, .) operands as the Mamba mixer passes them: q and k one
+    (B, T, N) slice of a wider tensor broadcast over the heads, v a
+    (B, T, H, P) tensor permuted; the output comes back in v's layout."""
+    B, T, H, N, P = 2, 128, 6, 16, 64
+    g = torch.Generator().manual_seed(0)
+    xbc = torch.randn(B, T, 40 + 2 * N, generator=g).to(dtype).to(dev)
+    k, q = (t[:, None].expand(B, H, T, N) for t in (xbc[..., 40:40 + N], xbc[..., 40 + N:]))
+    v = torch.randn(B, T, H, P, generator=g).to(dtype).to(dev).permute(0, 2, 1, 3)
+    logd = (-torch.rand(B, T, H, generator=g)).to(dev).permute(0, 2, 1)
+    before = ssd.ssd_scan_cuda.launches
+    got = ops.ssd_scan(q, k, v, logd, chunk=64)
+    assert ssd.ssd_scan_cuda.launches == before + 1
+    assert got.shape == (B, H, T, P) and got.permute(0, 2, 1, 3).is_contiguous()
+    flat = [x.reshape(B * H, T, x.shape[-1]).contiguous() for x in (q, k, v)]
+    want = ssd.ssd_scan_plain(*flat, logd.reshape(B * H, T).contiguous(), chunk=64)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(got.reshape(B * H, T, P).float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_mamba_layer_kernel_matches_plain_on_the_card(dev):
+    """One Mamba mixer of the jamba smoke config (d_model 128, bf16): the
+    zero-state forward through the kernel against the kernel's plain
+    version, one launch."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import mamba
+
+    cfg = get_arch("jamba-1.5-large-398b").smoke().replace(moe_every=0, dtype="bfloat16")
+    p = mamba.init_mamba(cfg, torch.Generator(device=dev).manual_seed(0))
+    x = torch.randn(2, 64, cfg.d_model, device=dev).to(torch.bfloat16)
+    before = ssd.ssd_scan_cuda.launches
+    got, _ = mamba.mamba_forward(cfg, p, x)
+    assert ssd.ssd_scan_cuda.launches == before + 1
+    want, _ = mamba.mamba_forward(cfg, p, x, ssd_kernel=False)
+    assert ssd.ssd_scan_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, k, v, logd = _ssd_inputs((2, 64, 8, 16), torch.float32, dev, seed=0)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan_cuda(q.double(), k.double(), v.double(), logd)
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_scan_cuda(q, k, v, logd.bfloat16())
+    with pytest.raises(ValueError, match="Dv"):
+        ssd.ssd_scan_cuda(q, k, torch.randn(2, 64, 12, device=dev), logd)
+    with pytest.raises(ValueError, match="Dk"):
+        x = torch.randn(2, 64, 33, device=dev)
+        ssd.ssd_scan_cuda(x, x, v, logd)
+    with pytest.raises(ValueError, match="at most 64"):
+        ssd.ssd_scan_cuda(q, k, v, logd, chunk=128)
+    with pytest.raises(ValueError, match="whole number of chunks"):
+        ssd.ssd_scan_cuda(q, k, v, logd, chunk=48)
+    with pytest.raises(ValueError, match="unit stride"):
+        x = torch.randn(2, 64, 16, device=dev)[:, :, ::2]
+        ssd.ssd_scan_cuda(x, x, v, logd)

@@ -117,9 +117,12 @@ def test_configs_and_registry_match_reference():
 
 
 def test_unported_families_and_the_train_step_raise():
-    for arch_type in ("dense", "moe", "ssm", "hybrid", "vlm"):
+    for arch_type in ("dense", "moe", "ssm", "vlm"):
         with pytest.raises(NotImplementedError, match="item 17"):
             build(ModelConfig(arch_type=arch_type))
+    # the hybrid is ported without its MoE MLPs
+    with pytest.raises(NotImplementedError, match="item 17"):
+        build(ModelConfig(arch_type="hybrid", n_layers=8, attn_every=8, moe_every=2))
     with pytest.raises(NotImplementedError, match="item 16"):
         build_step(build(base.get_arch(ARCH).smoke()), "train")
 

@@ -10,6 +10,7 @@ import sys
 import pytest
 import torch
 
+from repro_torch.configs.base import get_arch
 from repro_torch.fl import experiment, trainer
 from repro_torch.launch import serve
 
@@ -45,7 +46,9 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.models.mlp", "repro_torch.models.encdec", "repro_torch.models.registry",
             "repro_torch.configs.base", "repro_torch.configs.seamless_m4t_large_v2",
             "repro_torch.launch", "repro_torch.launch.steps", "repro_torch.launch.serve",
-            "repro_torch.kernels.flash_attention"} <= set(modules)
+            "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
+            "repro_torch.models.ssm", "repro_torch.models.mamba", "repro_torch.models.hybrid",
+            "repro_torch.configs.jamba_1_5_large_398b"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
@@ -66,3 +69,6 @@ def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch):
         serve.serve("seamless-m4t-large-v2", smoke=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke"])
+    jamba = get_arch("jamba-1.5-large-398b").smoke().replace(moe_every=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve(cfg=jamba)

@@ -267,3 +267,27 @@ def test_block_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="m <= 110"):
         rb.block_relay_mix_cuda(torch.zeros(1, 111, 111), torch.zeros(1, 111, 111),
                                 torch.zeros(111, 4))
+
+
+def test_build_compiles_and_binds_every_source_and_the_package_ships_them():
+    """Every ``csrc/*.cu`` is compiled, every C entry point it exports has a
+    ctypes signature, and the package data carries every source and header
+    (``common.cuh`` was missing from it, so an installed package could not
+    build its kernels)."""
+    import pathlib
+    import re
+    import tomllib
+
+    from repro_torch.kernels import build
+
+    csrc = pathlib.Path(build.__file__).parent / "csrc"
+    assert sorted(build.SOURCES) == sorted(csrc.glob("*.cu"))
+    exported = {m for src in build.SOURCES
+                for m in re.findall(r'extern "C" int (repro_\w+)', src.read_text())}
+    assert exported == set(build._SIGNATURES)
+    root = pathlib.Path(__file__).resolve().parent.parent
+    globs = tomllib.loads((root / "pyproject.toml").read_text())["tool"]["setuptools"][
+        "package-data"]["repro_torch"]
+    pkg = csrc.parent.parent
+    shipped = {p for g in globs for p in pkg.glob(g)}
+    assert set(csrc.iterdir()) <= shipped, sorted(set(csrc.iterdir()) - shipped)
