@@ -9,8 +9,8 @@ each of which fails the run by raising:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions and the TF32 settings the run uses;
-2. build: the CUDA kernels with nvcc, into build/ (seconds and ptxas
-   report printed);
+2. build: the CUDA kernels with nvcc, into build/ (seconds, and ptxas's
+   registers, spills and shared memory for every kernel printed);
 3. kernels against their plain PyTorch versions on the card, at the
    shapes of the main path and at off-grid ones: the ColRel aggregation
    kernels, the memory strategy's kernels (segment passes writing into
@@ -50,9 +50,13 @@ each of which fails the run by raising:
    serving CLI's path on 4 requests (64-token prompt replayed through the
    serve step, 32 greedy tokens), with prefill-vs-replay consistency at a
    depth cut;
-8. kernel 10 (causal flash attention) timed at the prefill shape beside
-   its bound, its plain version and PyTorch's
-   scaled_dot_product_attention;
+8. kernel 10 (causal flash attention) timed at the seamless prefill shape
+   beside its bound, its plain version and PyTorch's
+   scaled_dot_product_attention; then at jamba's prefill shape (64 query
+   heads over 8 kv heads, D=128) through ops.flash_attention on strided
+   views of one fused QKV tensor, checked to allocate only its output,
+   held to the plain version on one kv group, and timed beside its bound
+   and scaled_dot_product_attention with enable_gqa;
 9. serving jamba-1.5-large-398b at full width and one period (8 layers: 1
    attention with 64 query heads over 8 kv heads, 7 Mamba; dense SwiGLU
    MLPs, no experts; bf16, the port's own init from a seed; the seamless
@@ -117,6 +121,12 @@ N_LEAVES, D_FULL = 61, 272282  # cifar_cnn_full's parameter tree
 # bound for its kernel in f32 (tests/test_kernels.py:52), and 2e-2 in bf16
 # (the output is rounded to bf16 on both sides), compared in f32.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 kernel 10 per (head, 128-row block), relative L2 against the plain
+# version: one bf16 ulp (2^-8) on every element of the block.  The output
+# is rounded to bf16 on both sides, so a sound kernel differs by single-ulp
+# flips in a fraction of the elements; a stale or skipped kv tile errs by
+# percents in the rows it touches.
+FLASH_BLOCK_TOL = 2.0**-8
 SEAMLESS = "seamless-m4t-large-v2"
 # prefill cut from prefill_32k's 32 x 32768 (the reference's unchunked
 # cross-attention logits alone would be 64 GB there); serving as the
@@ -236,9 +246,16 @@ def main():
     t0 = time.perf_counter()
     lib = build.library()
     print(f"[build] {lib._name} in {time.perf_counter() - t0:.2f} s")
+    # ptxas's report per kernel: registers, spills, static shared memory;
+    # the bf16 flash kernel's dynamic shared memory from the library
+    kernel_name = ""
     for line in pathlib.Path(lib._name).with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel_name = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            print(f"[build] {kernel_name}: {line.strip()}")
+    print("[build] flash_tc_kernel dynamic shared memory per block: " + ", ".join(
+        f"D={d_} {lib.repro_flash_tc_smem_bytes(d_)} bytes" for d_ in fl.HEAD_DIMS))
 
     # -- 3. kernels against their plain versions ---------------------------
     n = colrel_paper.full().n_clients
@@ -435,8 +452,19 @@ def main():
         check(bool(torch.all(e <= tol + tol * want.float().abs())),
               f"flash_attention {what}: disagrees with its plain version by {float(e.max())}")
         max_err["flash_attention"] = max(max_err["flash_attention"], float(e.max()))
+        # bf16: each (head, 128-row block) held by relative L2, a limit that
+        # scales with the output (late rows of a causal pass are small)
+        blk = ""
+        if want.dtype == torch.bfloat16:
+            pad = -got.shape[1] % 128
+            sq = [torch.nn.functional.pad(x_.float().pow(2).sum(-1), (0, pad)).reshape(
+                got.shape[0], -1, 128).sum(-1) for x_ in (got.float() - want.float(), want)]
+            r = float((sq[0] / sq[1]).sqrt().max())
+            check(r <= FLASH_BLOCK_TOL, f"flash_attention {what}: a 128-row block is {r} "
+                  f"from its plain version (relative L2), past {FLASH_BLOCK_TOL}")
+            blk = f", worst 128-row block relative L2 {r:.3e} (tol {FLASH_BLOCK_TOL:.3e})"
         print(f"[kernels] flash_attention {what} max_abs_err={float(e.max()):.3e} "
-              f"(atol = rtol = {tol}), launches +{launched}")
+              f"(atol = rtol = {tol}){blk}, launches +{launched}")
 
     def heads_first(x):
         B_, T_, H_, D_ = x.shape
@@ -941,8 +969,8 @@ def main():
         "fused_memory_update": "one launch, n=10 d=272282 f32 stack and buffer",
         "memory_stream": "sum over the 61 segments of one round, n=10 f32, strided buffer views",
         "fused_dequant_aggregate": "one launch, n=10 d=272282 int8",
-        "block_fused_aggregate": "one launch (collapse, then stream), n=10 as C=2 m=5, "
-                                 "d=272282 f32",
+        "block_fused_aggregate": "one launch (the collapse, then the stream launched behind "
+                                 "it), n=10 as C=2 m=5, d=272282 f32",
         "block_row_stream": "sum over the 61 segments of one round, n=10 as C=2 m=5, f32",
         "block_relay_mix": "one launch, n=10 as C=2 m=5, d=272282 f32",
         "relay_mix": "one launch, n=16 d=2^20 f32 (the kernel benchmark's shape)",
@@ -996,6 +1024,9 @@ def main():
     from repro_torch.launch.steps import build_step
     from repro_torch.models import build as build_model
     from repro_torch.models import count_params, encdec
+    from repro_torch.models.attention import attention as attention_mixer
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.mlp import apply_mlp
 
     torch.cuda.empty_cache()
     s_cfg = get_arch(SEAMLESS).full()
@@ -1141,6 +1172,7 @@ def main():
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     BH, T_, D_ = PF_B * s_cfg.n_heads, PF_T, s_cfg.hd
     q, k, v = (torch.randn(BH, T_, D_, generator=g).to(torch.bfloat16).to(dev) for _ in range(3))
+    jgen_fl = torch.Generator(device=dev).manual_seed(1)
     before = fl.flash_attention_cuda.launches
     got = fl.flash_attention_cuda(q, k, v)
     flash_check(got, fl.flash_attention_plain(q, k, v), fl.flash_attention_cuda.launches - before,
@@ -1168,14 +1200,60 @@ def main():
           f"ms, library (scaled_dot_product_attention, is_causal) {fl_times['library_ms']:.4f} ms "
           f"[{card}]")
 
-    del q, k, v, q4, k4, v4, sparams, bundle, res, batch, frames, tokens
+    del q, k, v, q4, k4, v4
+    torch.cuda.empty_cache()
+
+    # kernel 10 at jamba's prefill shape: 64 query heads over 8 kv heads,
+    # D=128, q, k, v the strided (B, T, heads, D) slices of one fused QKV
+    # tensor, through the entry point the attention mixer calls.  The kernel
+    # reads them in place: the call allocates its output and nothing else
+    # (no k/v repeat, no transpose copy).  Held to the plain version on one
+    # kv group (its 8 query heads): the plain score tensor of all 64 heads
+    # would be 17 GB.
+    ja = get_arch(JAMBA).full()
+    JH, JKV, JD = ja.n_heads, ja.n_kv_heads, ja.hd
+    qkv = torch.randn(JB_B, JB_T, JH + 2 * JKV, JD, generator=jgen_fl, device=dev,
+                      dtype=torch.bfloat16)
+    jq, jk, jv = qkv[:, :, :JH], qkv[:, :, JH:JH + JKV], qkv[:, :, JH + JKV:]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = fl.flash_attention_cuda.launches
+    got = ops.flash_attention(jq, jk, jv)
+    launched = fl.flash_attention_cuda.launches - before
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - held
+    out_bytes = got.numel() * got.element_size()
+    check(extra <= out_bytes, f"ops.flash_attention at jamba's shape allocated {extra} bytes "
+          f"beyond its inputs, more than its {out_bytes}-byte output")
+    G = JH // JKV
+    for kv_ in (0, JKV - 1):  # the first and the last kv group
+        hs = slice(kv_ * G, (kv_ + 1) * G)
+        flash_check(heads_first(got[:, :, hs]), fl.flash_attention_plain(
+            heads_first(jq[:, :, hs]), heads_first(jk[:, :, kv_:kv_ + 1].expand(-1, -1, G, -1)),
+            heads_first(jv[:, :, kv_:kv_ + 1].expand(-1, -1, G, -1))), launched,
+            f"bf16 jamba (B, T, H, KV, D)=({JB_B}, {JB_T}, {JH}, {JKV}, {JD}) strided views, "
+            f"query heads {hs.start}-{hs.stop - 1} against the plain version on kv head {kv_}")
+    del got
+    jf_flops = 4 * JB_B * JH * JD * JB_T * (JB_T + 1) // 2
+    jf_bytes = 2 * (2 * JH + 2 * JKV) * JB_B * JB_T * JD
+    jf_ms = median_ms(lambda: ops.flash_attention(jq, jk, jv), flush, 10)
+    jf_sdpa_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        jq.transpose(1, 2), jk.transpose(1, 2), jv.transpose(1, 2), is_causal=True,
+        enable_gqa=True), flush, 10)
+    jf_bound = bound_ms(jf_bytes, jf_flops, BF16_FLOPS)
+    print(f"[time] flash_attention at jamba's prefill shape (one launch through "
+          f"ops.flash_attention, B={JB_B} T={JB_T} H={JH} KV={JKV} D={JD} bf16, strided views of "
+          f"one fused QKV tensor, {extra / 1e6:.1f} MB allocated for a {out_bytes / 1e6:.1f} MB "
+          f"output; {jf_flops / 1e12:.3f} TFLOP, {jf_bytes / 1e6:.1f} MB): kernel {jf_ms:.4f} ms "
+          f"({jf_flops / jf_ms / 1e9:.1f} TFLOP/s), bound {jf_bound:.4f} ms (operations at "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16), library (scaled_dot_product_attention, "
+          f"is_causal, enable_gqa) {jf_sdpa_ms:.4f} ms [{card}]")
+    del qkv, jq, jk, jv, sparams, bundle, res, batch, frames, tokens
     torch.cuda.empty_cache()
 
     # -- 9. jamba-1.5-large-398b at full width, one period: prefill, serving -
     from repro_torch.models import hybrid, mamba
-    from repro_torch.models.attention import attention as attention_mixer
-    from repro_torch.models.common import apply_norm
-    from repro_torch.models.mlp import apply_mlp
 
     j_cfg = get_arch(JAMBA).full().replace(n_layers=8, moe_every=0)
     j_bundle = build_model(j_cfg)

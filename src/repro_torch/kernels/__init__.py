@@ -10,7 +10,8 @@ and the device dispatch in :mod:`repro_torch.kernels.ops`.
   and segment stream over ``(C, m, m)`` blocks; ``relay_mix`` — the
   dense relay mix for a given mask, the same kernel with one cluster.
 * ``flash_attention`` — the model zoo's causal self-attention (online
-  softmax, dead kv tiles skipped) over ``(BH, T, D)``.
+  softmax, dead kv tiles skipped) over strided ``(B, T, H, D)`` views with
+  grouped kv heads read in place; in bf16, P V on the tensor cores.
 * ``ssd_scan`` — Mamba2's chunked SSD recurrence from a zero state, the
   state carried chunk to chunk inside one block.
 

@@ -52,8 +52,10 @@ _SIGNATURES = {
     "repro_block_relay_mix": (_P, _P, _P, _P, _I, _I, _I64, _I, _P),
     # (mix, x, out, n, d, dtype, stream)
     "repro_relay_mix": (_P, _P, _P, _I, _I64, _I, _P),
-    # (q, k, v, out, BH, T, D, dtype, stream)
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (q, k, v, out, strides[12], B, H, KV, T, D, dtype, stream)
+    "repro_flash_attention": (_P, _P, _P, _P, ctypes.POINTER(_I64), _I, _I, _I, _I, _I, _I, _P),
+    # (D) -> dynamic shared memory bytes of the bf16 kernel
+    "repro_flash_tc_smem_bytes": (_I,),
     # (q, k, v, log_decay, out, strides[15], BH, H, T, Dk, Dv, chunk, dtype, stream)
     "repro_ssd_scan": (_P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I, _I, _I, _I, _I, _I, _I,
                        _P),

@@ -1,10 +1,26 @@
 // Helpers shared by the port's streaming kernels (fused_aggregate.cu,
 // fused_memory.cu, relay_block.cu): element widening, 16-byte column
 // loads, the alignment test that picks the vector path, the column-block
-// grid, and the weighted row reduction of the aggregation kernels.
+// grid of the memory kernels, and the weighted row stream of the
+// aggregation kernels.
+//
+// The stream is the row reduction out = w @ X of five TPU kernels: kernels
+// 1, 2 and 6 (src/repro/kernels/fused_aggregate.py fused_aggregate_pallas
+// and row_stream_pallas, fused_dequant.py fused_dequant_aggregate_pallas)
+// and 8 and 9 (relay_block.py block_fused_aggregate_pallas and
+// block_row_stream_pallas).  It is bound by bytes: the (n, d) stack read
+// once and the (d,) row written, 11.98 MB at the main path's n = 10, d =
+// 272,282 f32, 3.6 us at 3.35 TB/s.  Its first design unrolled the row loop
+// by 4 over a grid of fused_block_d columns a block: at most four 16-byte
+// loads in flight a thread, one wave of 133 blocks, 12-14% of the memory
+// rate.  This one requests all n <= 12 rows' loads of a thread before the
+// first add, overlaps the making of the weight row with them, and sizes the
+// grid from d and the kernel's occupancy so that every block is resident
+// from the start (weighted_rows and stream_cols below).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -42,27 +58,102 @@ dim3 grid_for(int64_t d, int64_t block_d) {
   return dim3(static_cast<unsigned>((d + block_d - 1) / block_d));
 }
 
-// out[c] = sum_j w[j] * x[j, c] over this block's columns
-// [blockIdx.x * block_d, min((blockIdx.x + 1) * block_d, d)).
+// -- the weighted row stream of kernels 1, 2, 6, 8 and 9 ----------------------
+//
+// out[c] = sum_j w[j] * x[j, c], j in order, over this block's columns
+// [blockIdx.x * cols, min((blockIdx.x + 1) * cols, d)).
+//
+// The stream is bound by bytes (n*d*elt read once, 4*d written), so what
+// matters is how many bytes the card has in flight and that no block waits
+// for a second wave.  A thread owns V columns (one 16-byte word a row on the
+// vector path) and requests the loads of kRowBatch rows before it adds the
+// first of them: at n <= kRowBatch every row of its columns is requested at
+// once.  ready() runs once per block, by every thread, after the first batch
+// is requested and before w is read: it is where the weight row is made (the
+// collapse into shared memory and a barrier, or griddepcontrol.wait behind a
+// collapse kernel), so that work overlaps the first loads.  stream_cols
+// sizes the blocks from d and the kernel's occupancy so that every block is
+// resident from the start.
+//
+// Products and sums are rounded on their own (__fmul_rn / __fadd_rn, no
+// FMA contraction) in global row order, so the result does not depend on
+// the column partition, the batch size or the grid: the plain versions,
+// per-segment passes and the C = 1 clustered kernels agree to the bit.
+constexpr int kRowBatch = 12;
+
 template <typename T, int V>
-__device__ __forceinline__ void weighted_rows(const float* __restrict__ w,
-                                              const T* __restrict__ x,
-                                              float* __restrict__ out, int n,
-                                              int64_t d, int64_t block_d) {
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * block_d;
-  const int64_t c1 = c0 + block_d < d ? c0 + block_d : d;
+struct RowWord {
+  // one row's V columns as loaded: a 16-byte word, or one element
+  using type = typename std::conditional<V * sizeof(T) == 16, uint4, T>::type;
+};
+
+template <typename T, int V>
+__device__ __forceinline__ typename RowWord<T, V>::type load_word(const T* __restrict__ p) {
+  if constexpr (V * sizeof(T) == 16) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    static_assert(V == 1, "the scalar path loads one element");
+    return p[0];
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void widen_word(const typename RowWord<T, V>::type& raw,
+                                           float (&x)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) x[k] = to_f32(e[k]);
+  } else {
+    x[0] = to_f32(raw);
+  }
+}
+
+// Rows [j0, j0 + kRowBatch) of column group c, rows past n left alone.
+template <typename T, int V>
+__device__ __forceinline__ void load_batch(typename RowWord<T, V>::type (&b)[kRowBatch],
+                                           const T* __restrict__ x, int64_t c, int j0, int n,
+                                           int64_t d) {
+#pragma unroll
+  for (int r = 0; r < kRowBatch; ++r)
+    if (j0 + r < n) b[r] = load_word<T, V>(x + static_cast<int64_t>(j0 + r) * d + c);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void add_batch(float (&acc)[V],
+                                          const typename RowWord<T, V>::type (&b)[kRowBatch],
+                                          const float* w, int j0, int n) {
+#pragma unroll
+  for (int r = 0; r < kRowBatch; ++r) {
+    if (j0 + r < n) {
+      float xv[V];
+      widen_word<T, V>(b[r], xv);
+      const float wj = w[j0 + r];
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wj, xv[k]));
+    }
+  }
+}
+
+template <typename T, int V, typename Ready>
+__device__ __forceinline__ void weighted_rows(const float* w, const T* __restrict__ x,
+                                              float* __restrict__ out, int n, int64_t d,
+                                              int64_t cols, Ready ready) {
+  using Word = typename RowWord<T, V>::type;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cols;
+  const int64_t c1 = c0 + cols < d ? c0 + cols : d;
   const int64_t step = static_cast<int64_t>(blockDim.x) * V;
-  for (int64_t c = c0 + static_cast<int64_t>(threadIdx.x) * V; c < c1; c += step) {
+  int64_t c = c0 + static_cast<int64_t>(threadIdx.x) * V;
+  Word rows[kRowBatch];
+  if (c < c1) load_batch<T, V>(rows, x, c, 0, n, d);
+  ready();
+  for (bool first = true; c < c1; c += step, first = false) {
     float acc[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[k] = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      float xv[V];
-      load_cols<T, V>(x + static_cast<int64_t>(j) * d + c, xv);
-      const float wj = w[j];
-#pragma unroll
-      for (int k = 0; k < V; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wj, xv[k]));
+    for (int j0 = 0; j0 < n; j0 += kRowBatch) {
+      if (!first || j0 > 0) load_batch<T, V>(rows, x, c, j0, n, d);
+      add_batch<T, V>(acc, rows, w, j0, n);
     }
     if constexpr (V % 4 == 0) {
       float4* o = reinterpret_cast<float4*>(out + c);
@@ -74,6 +165,36 @@ __device__ __forceinline__ void weighted_rows(const float* __restrict__ w,
       for (int k = 0; k < V; ++k) out[c + k] = acc[k];
     }
   }
+}
+
+// How many blocks of kThreads the card holds at once for this kernel with
+// `smem` bytes of dynamic shared memory: its SM count times its occupancy.
+inline int64_t resident_blocks(const void* kernel, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    sms = 1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+          cudaSuccess || per_sm < 1)
+    per_sm = 1;
+  return static_cast<int64_t>(sms) * per_sm;
+}
+
+// The stream's columns a block: as few as give every resident block of the
+// card a share (one wave, several blocks an SM), rounded up to a whole
+// number of one warp's 16-byte passes (32*V columns) or, past one pass of
+// the whole block, of block passes, so that no thread does more passes than
+// another; never more than block_d (the reference's fused_block_d, an upper
+// bound here).
+inline int64_t stream_cols(int64_t d, int64_t block_d, int V, int64_t resident) {
+  const int64_t share = (d + resident - 1) / resident;
+  const int64_t unit = static_cast<int64_t>(share <= kThreads * V ? 32 : kThreads) * V;
+  const int64_t cols = (share + unit - 1) / unit * unit;
+  return cols < block_d ? cols : block_d;
+}
+
+inline dim3 stream_grid(int64_t d, int64_t cols) {
+  return dim3(static_cast<unsigned>((d + cols - 1) / cols));
 }
 
 }  // namespace

@@ -30,8 +30,12 @@
 //   neighbouring threads on neighbouring addresses, whenever the rows are
 //   16-byte aligned (d*elt % 16 == 0 and an aligned base).  Otherwise, as
 //   for the 10-value fc bias, the kernel takes the scalar path.
-// * The row loop is unrolled so that several rows' loads are in flight
-//   per thread.
+// * The stream is common.cuh's weighted_rows: a thread's loads of up to 12
+//   rows go out before its first add, the collapse into shared memory runs
+//   while they are in flight, and the grid is sized from d and the
+//   kernel's occupancy so that every block is resident at once (at most
+//   block_d columns a block).  row_stream reads its given w through the
+//   cache.
 // * No host-side padding: each block masks its ragged last columns.
 //
 // Arithmetic: f32 accumulation in row order, products and sums rounded
@@ -69,12 +73,13 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 fused_aggregate_kernel(const float* __restrict__ A, const float* __restrict__ tau_up,
                        const float* __restrict__ tau_dd, const T* __restrict__ x,
-                       float* __restrict__ out, int n, int64_t d, int64_t block_d,
+                       float* __restrict__ out, int n, int64_t d, int64_t cols,
                        float inv_n) {
   extern __shared__ float w[];
-  collapse_row(A, tau_up, tau_dd, nullptr, w, n, inv_n);
-  __syncthreads();
-  weighted_rows<T, V>(w, x, out, n, d, block_d);
+  weighted_rows<T, V>(w, x, out, n, d, cols, [&] {
+    collapse_row(A, tau_up, tau_dd, nullptr, w, n, inv_n);
+    __syncthreads();
+  });
 }
 
 // The quantized path's twin: the per-row dequant scales fold into the
@@ -85,21 +90,20 @@ __global__ void __launch_bounds__(kThreads)
 fused_dequant_kernel(const float* __restrict__ A, const float* __restrict__ tau_up,
                      const float* __restrict__ tau_dd, const float* __restrict__ scale,
                      const int8_t* __restrict__ q, float* __restrict__ out, int n,
-                     int64_t d, int64_t block_d, float inv_n) {
+                     int64_t d, int64_t cols, float inv_n) {
   extern __shared__ float w[];
-  collapse_row(A, tau_up, tau_dd, scale, w, n, inv_n);
-  __syncthreads();
-  weighted_rows<int8_t, V>(w, q, out, n, d, block_d);
+  weighted_rows<int8_t, V>(w, q, out, n, d, cols, [&] {
+    collapse_row(A, tau_up, tau_dd, scale, w, n, inv_n);
+    __syncthreads();
+  });
 }
 
+// The weight row is given: it is read through the cache, not staged.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-row_stream_kernel(const float* __restrict__ w_in, const T* __restrict__ x,
-                  float* __restrict__ out, int n, int64_t d, int64_t block_d) {
-  extern __shared__ float w[];
-  for (int j = threadIdx.x; j < n; j += blockDim.x) w[j] = w_in[j];
-  __syncthreads();
-  weighted_rows<T, V>(w, x, out, n, d, block_d);
+row_stream_kernel(const float* __restrict__ w, const T* __restrict__ x,
+                  float* __restrict__ out, int n, int64_t d, int64_t cols) {
+  weighted_rows<T, V>(w, x, out, n, d, cols, [] {});
 }
 
 template <typename T>
@@ -109,12 +113,17 @@ cudaError_t launch_fused(const float* A, const float* tau_up, const float* tau_d
   constexpr int V = 16 / sizeof(T);
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
   const T* xt = static_cast<const T*>(x);
-  if (rows_aligned<T>(x, d))
-    fused_aggregate_kernel<T, V><<<grid_for(d, block_d), kThreads, smem, stream>>>(
-        A, tau_up, tau_dd, xt, out, n, d, block_d, inv_n);
-  else
-    fused_aggregate_kernel<T, 1><<<grid_for(d, block_d), kThreads, smem, stream>>>(
-        A, tau_up, tau_dd, xt, out, n, d, block_d, inv_n);
+  if (rows_aligned<T>(x, d)) {
+    const int64_t cols = stream_cols(
+        d, block_d, V, resident_blocks((const void*)fused_aggregate_kernel<T, V>, smem));
+    fused_aggregate_kernel<T, V><<<stream_grid(d, cols), kThreads, smem, stream>>>(
+        A, tau_up, tau_dd, xt, out, n, d, cols, inv_n);
+  } else {
+    const int64_t cols = stream_cols(
+        d, block_d, 1, resident_blocks((const void*)fused_aggregate_kernel<T, 1>, smem));
+    fused_aggregate_kernel<T, 1><<<stream_grid(d, cols), kThreads, smem, stream>>>(
+        A, tau_up, tau_dd, xt, out, n, d, cols, inv_n);
+  }
   return cudaGetLastError();
 }
 
@@ -122,14 +131,18 @@ template <typename T>
 cudaError_t launch_row_stream(const float* w, const void* x, float* out, int n, int64_t d,
                               int64_t block_d, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
   const T* xt = static_cast<const T*>(x);
-  if (rows_aligned<T>(x, d))
-    row_stream_kernel<T, V><<<grid_for(d, block_d), kThreads, smem, stream>>>(
-        w, xt, out, n, d, block_d);
-  else
-    row_stream_kernel<T, 1><<<grid_for(d, block_d), kThreads, smem, stream>>>(
-        w, xt, out, n, d, block_d);
+  if (rows_aligned<T>(x, d)) {
+    const int64_t cols =
+        stream_cols(d, block_d, V, resident_blocks((const void*)row_stream_kernel<T, V>, 0));
+    row_stream_kernel<T, V><<<stream_grid(d, cols), kThreads, 0, stream>>>(w, xt, out, n, d,
+                                                                           cols);
+  } else {
+    const int64_t cols =
+        stream_cols(d, block_d, 1, resident_blocks((const void*)row_stream_kernel<T, 1>, 0));
+    row_stream_kernel<T, 1><<<stream_grid(d, cols), kThreads, 0, stream>>>(w, xt, out, n, d,
+                                                                           cols);
+  }
   return cudaGetLastError();
 }
 
@@ -137,12 +150,17 @@ cudaError_t launch_dequant(const float* A, const float* tau_up, const float* tau
                            const float* scale, const int8_t* q, float* out, int n, int64_t d,
                            int64_t block_d, float inv_n, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  if (rows_aligned<int8_t>(q, d))
-    fused_dequant_kernel<16><<<grid_for(d, block_d), kThreads, smem, stream>>>(
-        A, tau_up, tau_dd, scale, q, out, n, d, block_d, inv_n);
-  else
-    fused_dequant_kernel<1><<<grid_for(d, block_d), kThreads, smem, stream>>>(
-        A, tau_up, tau_dd, scale, q, out, n, d, block_d, inv_n);
+  if (rows_aligned<int8_t>(q, d)) {
+    const int64_t cols = stream_cols(
+        d, block_d, 16, resident_blocks((const void*)fused_dequant_kernel<16>, smem));
+    fused_dequant_kernel<16><<<stream_grid(d, cols), kThreads, smem, stream>>>(
+        A, tau_up, tau_dd, scale, q, out, n, d, cols, inv_n);
+  } else {
+    const int64_t cols = stream_cols(
+        d, block_d, 1, resident_blocks((const void*)fused_dequant_kernel<1>, smem));
+    fused_dequant_kernel<1><<<stream_grid(d, cols), kThreads, smem, stream>>>(
+        A, tau_up, tau_dd, scale, q, out, n, d, cols, inv_n);
+  }
   return cudaGetLastError();
 }
 

@@ -35,8 +35,16 @@
 //   once, one thread per client, and the streaming pass reads it through
 //   the cache: the row is never staged in shared memory, so n is not bound
 //   by it (n = 16,384 with m = 64 runs).
-// * The streaming pass is the row reduction of kernels 1-2 (common.cuh):
-//   16-byte loads when the rows are 16-byte aligned, else the scalar path.
+// * The two launches overlap (programmatic dependent launch): the stream
+//   is launched with programmatic stream serialization, the collapse lets
+//   it start at once (griddepcontrol.launch_dependents), and each stream
+//   block requests its first X loads before griddepcontrol.wait, which
+//   returns once the collapse has finished and its w is visible.  Kernel 9
+//   launches the same stream on its own, and the wait returns at once.
+// * The streaming pass is the row reduction of kernels 1-2 (common.cuh's
+//   weighted_rows): all of a thread's rows in flight before its first add,
+//   a grid sized so every block is resident at once, 16-byte loads when
+//   the rows are 16-byte aligned, else the scalar path.
 // * The relay mixes give each block one cluster's (m, m) mask in shared
 //   memory (computed as A_c * tau_c^T, or copied when given) and a range of
 //   columns, one column per thread.  A thread sums 16 output rows at a time
@@ -66,10 +74,13 @@ __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // w[c*m + j] = inv_n * sum_i tau_up[c*m + i] * (A[c, i, j] * tau[c, j, i]), i in order.
+// It lets the stream behind it launch at once (programmatic dependent
+// launch): the stream's blocks request their first X loads while this runs.
 __global__ void __launch_bounds__(kThreads)
 block_collapse_kernel(const float* __restrict__ A, const float* __restrict__ tau_up,
                       const float* __restrict__ tau, float* __restrict__ w, int n, int m,
                       float inv_n) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   const int c = k / m, j = k - c * m;
@@ -84,11 +95,15 @@ block_collapse_kernel(const float* __restrict__ A, const float* __restrict__ tau
   w[k] = __fmul_rn(s, inv_n);
 }
 
+// griddepcontrol.wait returns once the collapse kernel ahead of it has
+// finished and its w is visible; launched on its own (kernel 9, w given),
+// there is nothing to wait for and it returns at once.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 block_stream_kernel(const float* __restrict__ w, const T* __restrict__ x,
-                    float* __restrict__ out, int n, int64_t d, int64_t block_d) {
-  weighted_rows<T, V>(w, x, out, n, d, block_d);
+                    float* __restrict__ out, int n, int64_t d, int64_t cols) {
+  weighted_rows<T, V>(w, x, out, n, d, cols,
+                      [] { asm volatile("griddepcontrol.wait;" ::: "memory"); });
 }
 
 // out[c*m + i, col] = sum_j mask_c[i, j] * x[c*m + j, col], j in order;
@@ -130,18 +145,35 @@ relay_mix_kernel(const float* __restrict__ A, const float* __restrict__ tau,
   }
 }
 
+// The stream, launched behind the collapse with programmatic stream
+// serialization (dependent) or on its own.
+template <typename T, int V>
+cudaError_t launch_stream_v(const float* w, const T* x, float* out, int n, int64_t d,
+                            int64_t block_d, bool dependent, cudaStream_t stream) {
+  const int64_t cols =
+      stream_cols(d, block_d, V, resident_blocks((const void*)block_stream_kernel<T, V>, 0));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = stream_grid(d, cols);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, block_stream_kernel<T, V>, w, x, out, n, d, cols);
+}
+
 template <typename T>
 cudaError_t launch_stream(const float* w, const void* x, float* out, int n, int64_t d,
-                          int64_t block_d, cudaStream_t stream) {
+                          int64_t block_d, bool dependent, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const T* xt = static_cast<const T*>(x);
-  if (rows_aligned<T>(x, d))
-    block_stream_kernel<T, V><<<grid_for(d, block_d), kThreads, 0, stream>>>(
-        w, xt, out, n, d, block_d);
-  else
-    block_stream_kernel<T, 1><<<grid_for(d, block_d), kThreads, 0, stream>>>(
-        w, xt, out, n, d, block_d);
-  return cudaGetLastError();
+  const cudaError_t err =
+      rows_aligned<T>(x, d) ? launch_stream_v<T, V>(w, xt, out, n, d, block_d, dependent, stream)
+                            : launch_stream_v<T, 1>(w, xt, out, n, d, block_d, dependent, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, bool kGivenMask>
@@ -171,8 +203,8 @@ extern "C" int repro_block_fused_aggregate(const float* A, const float* tau_up,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (dtype) {
-    case kF32: return launch_stream<float>(w, x, out, n, d, block_d, s);
-    case kBF16: return launch_stream<__nv_bfloat16>(w, x, out, n, d, block_d, s);
+    case kF32: return launch_stream<float>(w, x, out, n, d, block_d, true, s);
+    case kBF16: return launch_stream<__nv_bfloat16>(w, x, out, n, d, block_d, true, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -181,8 +213,8 @@ extern "C" int repro_block_row_stream(const float* w, const void* x, float* out,
                                       int64_t d, int64_t block_d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch_stream<float>(w, x, out, n, d, block_d, s);
-    case kBF16: return launch_stream<__nv_bfloat16>(w, x, out, n, d, block_d, s);
+    case kF32: return launch_stream<float>(w, x, out, n, d, block_d, false, s);
+    case kBF16: return launch_stream<__nv_bfloat16>(w, x, out, n, d, block_d, false, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

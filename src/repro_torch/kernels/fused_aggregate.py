@@ -41,7 +41,7 @@ __all__ = [
 
 # element type codes of csrc/fused_aggregate.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the kernels keep the (n,) weight row in dynamic shared memory; 4096
+# the fused kernels make the (n,) weight row in dynamic shared memory; 4096
 # floats stay well inside the 48 KB a launch gets without opting in
 _MAX_N = 4096
 
@@ -120,7 +120,8 @@ def fused_aggregate_cuda(A: torch.Tensor, tau_up: torch.Tensor, tau_dd: torch.Te
                          updates: torch.Tensor, *, block_d: int = 2048) -> torch.Tensor:
     """One-pass ColRel PS delta ``(1/n) tau_up @ ((A * tau_dd^T) @ updates)``
     for an (n, d) f32 or bf16 CUDA stack; returns the (d,) f32 delta.
-    Each CUDA block covers ``block_d`` columns."""
+    Each CUDA block covers at most ``block_d`` columns (fewer where that
+    keeps every block of the grid resident at once)."""
     _check_stack(updates, (torch.float32, torch.bfloat16), "fused_aggregate")
     _check_block(block_d)
     n, d = updates.shape

@@ -168,10 +168,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                     block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
     """q (B, T, H, D), k/v (B, T, KV, D) -> (B, T, H, D) causal attention.
 
-    Grouped kv heads are broadcast to H (as ``jnp.repeat`` on the head
-    axis).  ``block_q``/``block_kv`` keep the reference's rule that T is a
-    whole number of ``min(block, T)`` blocks; the kernel's own tiles are
-    fixed and it would take any T."""
+    Grouped kv heads serve ``H // KV`` query heads each (as ``jnp.repeat``
+    on the head axis).  On the card the kernel reads them, and q, k, v as
+    the strided views they are, in place; the plain version on the CPU
+    broadcasts and works heads-first.  ``block_q``/``block_kv`` keep the
+    reference's rule that T is a whole number of ``min(block, T)`` blocks;
+    the kernel's own tiles are fixed and it would take any T."""
     if not causal:
         raise ValueError("flash_attention: only causal self-attention is kernelized")
     B, T, H, D = q.shape
@@ -181,22 +183,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                          f"k {tuple(k.shape)}")
     if H % KV:
         raise ValueError(f"flash_attention: {H} query heads over {KV} kv heads")
-    if KV != H:
-        k = torch.repeat_interleave(k, H // KV, dim=2)
-        v = torch.repeat_interleave(v, H // KV, dim=2)
     bq, bkv = min(block_q, T), min(block_kv, T)
     if T % bq or T % bkv:
         raise ValueError(f"flash_attention: T={T} is not a whole number of blocks "
                          f"(block_q={bq}, block_kv={bkv}), as the reference kernel requires")
+    if not _on_cpu(q):
+        return fl.flash_attention_cuda(q, k, v)
+    if KV != H:
+        k = torch.repeat_interleave(k, H // KV, dim=2)
+        v = torch.repeat_interleave(v, H // KV, dim=2)
 
     def heads_first(x):
         return x.transpose(1, 2).reshape(B * H, T, D).contiguous()
 
-    qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
-    if _on_cpu(qf):
-        out = fl.flash_attention_plain(qf, kf, vf)
-    else:
-        out = fl.flash_attention_cuda(qf, kf, vf)
+    out = fl.flash_attention_plain(heads_first(q), heads_first(k), heads_first(v))
     return out.reshape(B, H, T, D).transpose(1, 2)
 
 

@@ -11,9 +11,10 @@ never exists:
   stack's dtype.
 * :func:`block_fused_aggregate_cuda` for ``block_fused_aggregate_pallas``
   — the one-pass PS delta ``(1/n) sum_c tau_up_c @ ((A_c * tau_c^T) @
-  Dx_c)``, (d,) f32: the per-cluster weight rows are collapsed once into
-  an (n,) row (a small kernel), then the stack streams through the row
-  reduction of kernels 1-2 in one pass.
+  Dx_c)``, (d,) f32, the stack read once through the row reduction of
+  kernels 1-2: the per-cluster weight rows are collapsed once into an (n,)
+  row by a small kernel, and the stream is launched behind it so that its
+  first loads start while the row is made (n = 16,384 runs).
 * :func:`block_row_stream_cuda` for ``block_row_stream_pallas`` —
   ``sum_c w_c @ segment_c`` for one ``(n, d_i)`` leaf segment with the
   ``(C, m)`` rows given, so the monolithic stack never has to exist.
@@ -164,8 +165,8 @@ def block_fused_aggregate_cuda(Ab: torch.Tensor, tau_up: torch.Tensor, tau_b: to
                                updates: torch.Tensor, *, block_d: int = 2048) -> torch.Tensor:
     """One-pass blocked ColRel PS delta ``(1/n) sum_c tau_up_c @ ((A_c *
     tau_c^T) @ X_c)`` for an (n, d) f32 or bf16 CUDA stack, n = C*m;
-    returns the (d,) f32 delta.  Each CUDA block of the stream covers
-    ``block_d`` columns."""
+    returns the (d,) f32 delta.  Each CUDA block of the stream covers at
+    most ``block_d`` columns."""
     C, m = _clusters(Ab, "block_fused_aggregate")
     n = C * m
     check_stack(updates, n, "block_fused_aggregate")

@@ -322,6 +322,129 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fl.flash_attention_cuda(q, q[:, :64].contiguous(), q)
 
 
+def _fused_qkv_views(B, T, H, KV, D, dtype, dev, seed):
+    """q (B, T, H, D), k and v (B, T, KV, D) sliced from one fused QKV
+    projection output (B, T, H + 2 KV, D): strided, not contiguous."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, T, H + 2 * KV, D, generator=g).to(dtype).to(dev)
+    return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+
+
+def _flash_plain_gqa(q, k, v):
+    """The plain version on the heads-first broadcast copies, (B, T, H, D)."""
+    B, T, H, D = q.shape
+    G = H // k.shape[2]
+
+    def heads_first(x):
+        return x.transpose(1, 2).reshape(B * H, T, D)
+
+    out = fl.flash_attention_plain(heads_first(q), heads_first(k.repeat_interleave(G, 2)),
+                                   heads_first(v.repeat_interleave(G, 2)))
+    return out.reshape(B, H, T, D).transpose(1, 2)
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 77, 192, 1024])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_flash_attention_bf16_strided_gqa_views(dev, T, D, group):
+    """The bf16 kernel on q, k, v sliced from a fused QKV output
+    (strided views, H/KV = group), against the plain version on the
+    broadcast copies; ragged T at the 128-row query tiles and the 64-key
+    kv tiles."""
+    KV = 2
+    q, k, v = _fused_qkv_views(2, T, KV * group, KV, D, torch.bfloat16, dev, seed=T + D + group)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    before = fl.flash_attention_cuda.launches
+    got = fl.flash_attention_cuda(q, k, v)
+    want = _flash_plain_gqa(q, k, v)
+    torch.cuda.synchronize()
+    assert fl.flash_attention_cuda.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("T,D,group", [(1, 32, 1), (77, 64, 2), (192, 128, 8), (256, 64, 8)])
+def test_flash_attention_f32_strided_gqa_views(dev, T, D, group):
+    """The f32 CUDA-core kernel on the same strided GQA views, at the
+    reference's f32 bound."""
+    q, k, v = _fused_qkv_views(2, T, 2 * group, 2, D, torch.float32, dev, seed=T + D)
+    before = fl.flash_attention_cuda.launches
+    got = fl.flash_attention_cuda(q, k, v)
+    want = _flash_plain_gqa(q, k, v)
+    torch.cuda.synchronize()
+    assert fl.flash_attention_cuda.launches == before + 1
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_flash_attention_entry_point_reads_views_in_place(dev):
+    """ops.flash_attention at jamba's 64/8 head ratio hands the strided
+    views to the kernel: one launch, and the same output as the kernel on
+    contiguous copies."""
+    q, k, v = _fused_qkv_views(1, 256, 64, 8, 128, torch.bfloat16, dev, seed=3)
+    before = fl.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v)
+    assert fl.flash_attention_cuda.launches == before + 1
+    assert torch.equal(got, fl.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                                    v.contiguous()))
+
+
+def test_flash_wrapper_rejects_unaligned_rows(dev):
+    x = torch.randn(2, 64, 3, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.flash_attention_cuda(x[:, :, :, :], x[:, :, :1], x.reshape(-1)[4:4 + 2 * 64 * 64]
+                                .reshape(2, 64, 1, 64))
+    with pytest.raises(ValueError, match="query heads"):
+        fl.flash_attention_cuda(x, x[:, :, :2], x[:, :, :2])
+
+
+# -- the weighted row stream shared by kernels 1, 2, 6, 8 and 9 ---------------
+
+
+@pytest.mark.parametrize("C,m,d", [(C, m, d) for C, m in ((1, 4), (2, 5), (1, 10), (3, 11), (1, 33))
+                                   for d in (272282, 272281, 36864, 17)]
+                         + [(1, 64, 4099), (4096, 1, 4099), (64, 16, 4099), (256, 64, 4099),
+                            (256, 64, 17)])
+def test_block_fused_aggregate_bitwise_over_the_stream_grid(dev, C, m, d):
+    """Kernel 8 against its plain version, bitwise, at the main path's d, a
+    ragged d (the scalar path) and segment sizes, from n = 4 to n = 16,384
+    (256 clusters of 64) and n = 4096 as 4096 clusters of 1; one count a
+    call."""
+    Ab, tau_up, tau_b, X = _blocks(C, m, d, torch.float32, dev, seed=C * m + d)
+    before = rb.block_fused_aggregate_cuda.launches
+    got = rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X)
+    torch.cuda.synchronize()
+    assert rb.block_fused_aggregate_cuda.launches == before + 1
+    assert torch.equal(got, rb.block_fused_aggregate_plain(Ab, tau_up, tau_b, X))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", [272282, 272281, 4099])
+def test_stream_result_is_independent_of_block_d(dev, dtype, d):
+    """block_d only bounds the columns a block takes: kernels 1, 2, 6, 8
+    and 9 give the same bits at every bound, and equal their plain
+    versions."""
+    A, tau_up, tau_dd, X = _round(10, d, dtype, dev, seed=d)
+    w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+    rows = [fa.row_stream_cuda(w, X, block_d=b) for b in (16, 2048, 1 << 20)]
+    assert all(torch.equal(r, rows[0]) for r in rows)
+    assert torch.equal(rows[0], fa.row_stream_plain(w, X))
+    if dtype == torch.int8:
+        scale = torch.rand(10, 1, generator=torch.Generator().manual_seed(d)).to(dev) / 40
+        outs = [fdq.fused_dequant_aggregate_cuda(A, tau_up, tau_dd, X, scale, block_d=b)
+                for b in (16, 2048, 1 << 20)]
+        assert all(torch.equal(o, outs[0]) for o in outs)
+        assert torch.equal(outs[0], fdq.fused_dequant_aggregate_plain(A, tau_up, tau_dd, X, scale))
+        return
+    outs = [fa.fused_aggregate_cuda(A, tau_up, tau_dd, X, block_d=b) for b in (16, 2048, 1 << 20)]
+    outs += [rb.block_fused_aggregate_cuda(A[None], tau_up, tau_dd[None], X, block_d=b)
+             for b in (16, 2048, 1 << 20)]
+    outs += [rb.block_row_stream_cuda(w.reshape(1, 10), X, block_d=b) for b in (16, 2048, 1 << 20)]
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert torch.equal(outs[0], fa.fused_aggregate_plain(A, tau_up, tau_dd, X))
+
+
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
 
 

@@ -116,3 +116,27 @@ def test_non_cpu_tensors_go_to_the_kernel_and_never_fall_back():
     cpu = torch.zeros((2, 128, 64))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fl.flash_attention_cuda(cpu, cpu, cpu)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_jamba_head_ratio_matches_reference_entry_point(dtype, fused):
+    """jamba's 64 query heads over 8 kv heads, at a narrow width (D=32,
+    T=128), through ``ops.flash_attention`` against the reference's entry
+    point; with ``fused`` q, k and v are the strided slices of one fused
+    QKV output, as the card's kernel takes them.  Tolerance as above:
+    atol = rtol = 2e-5 in f32, 2e-2 in bf16."""
+    B, T, H, KV, D = 1, 128, 64, 8, 32
+    rng = np.random.default_rng(64 + fused)
+    qkv = rng.normal(size=(B, T, H + 2 * KV, D)).astype(np.float32)
+    arrays = [qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]]
+    if not fused:
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+    (jq, jk, jv), _ = _pair([np.ascontiguousarray(a) for a in arrays], dtype)
+    t = torch.from_numpy(qkv).to(getattr(torch, dtype))
+    q, k, v = t[:, :, :H], t[:, :, H:H + KV], t[:, :, H + KV:]
+    if not fused:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    got = ops.flash_attention(q, k, v, block_q=64, block_kv=64)
+    assert got.shape == (B, T, H, D) and got.dtype == q.dtype
+    _assert_close(got, jops.flash_attention(jq, jk, jv, block_q=64, block_kv=64), dtype)
