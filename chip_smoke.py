@@ -69,14 +69,19 @@ each of which fails the run by raising:
    steps; then in f32 the whole period at 1 x 1024, kernel path against
    plain path, and the served prompt's prefill against its replay;
 10. kernel 11 (the chunked SSD recurrence) timed at the prefill shape
-   beside its bound and its plain version.
+   beside its bound and its plain version, on contiguous operands and on
+   the Mamba mixer's views, which are also held to the plain version.
 
 Phase 3 also holds kernel 10 against its plain version at (BH, T, D) in
 {(2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64)}, f32 and
 bf16, and through the GQA entry point (16 query heads over 8 kv heads);
 and kernel 11 at (BH, T, Dk, Dv) in {(2, 128, 8, 16), (1, 64, 4, 4),
 (3, 96, 16, 32)} with chunks of 16 and 32, and at the jamba prefill's
-(1024, 4096, 16, 64) with chunks of 64, f32 and bf16.
+(1024, 4096, 16, 64) with chunks of 64, f32 and bf16, and in bf16 once
+more with decays 16 times slower (a state that lives across chunks).  In
+bf16 each (slice, chunk) and each slice of kernel 11's output is also held
+by relative L2 (SSD_CHUNK_TOL, SSD_SLICE_TOL), here and on the Mamba views
+of phase 10.
 
 The line before the last is a JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -154,6 +159,18 @@ PREFILL_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # bf16 on both sides), compared in f32; both compute in f32 and sum the
 # products in another order.
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+# bf16 kernel 11 by relative L2 against its plain version, per (slice,
+# chunk) and per slice.  Both outputs are rounded to bf16, so a sound kernel
+# differs by single-ulp flips in a fraction of the elements.  Per chunk: one
+# bf16 ulp (2^-8) on every element, which a stale or skipped chunk, state
+# or tile passes by far.  Per slice: the elementwise SSD_TOL cannot tell
+# the kernel's hi + lo split products (~16 bits) from hi-only ones (~8
+# bits); this limit lies between the kernel's readings (at most 2.3e-4)
+# and those of copies with one of its three splits (W, S, k * decay) cut to
+# the hi part (at least 3.7e-4 at the prefill shape, 1.6e-3 there with slow
+# decays; tools/ssd_split_probe.py, NVIDIA H100 80GB HBM3).
+SSD_CHUNK_TOL = 2.0**-8
+SSD_SLICE_TOL = 3e-4
 JAMBA = "jamba-1.5-large-398b"
 # jamba at full width, one period (1 attention + 7 Mamba layers, dense MLPs:
 # depth 72 -> 8, moe_every 2 -> 0); the prefill cut from prefill_32k's 32 x
@@ -165,6 +182,12 @@ JB_B, JB_T = 4, 4096
 SSD_PREFILL_SHAPE = (JB_B * 256, JB_T, 16, 64)
 JB_SV_P, JB_SV_G = 128, 32
 JB_F32_T = 1024
+# Kernels 3 and 7 at their timed shapes (phase 5; tools/kernel_times.py):
+# relay_mix at the kernel benchmark's n=16, d=2^20 f32, block_relay_mix on
+# the clustered cifar_cnn_full stack (C=2 x m=5, d=D_FULL); the timed calls
+# of kernels 3 and 7 and of kernel 11
+MIX_N, MIX_D = 16, 2**20
+MIX_REPS, SSD_REPS = 100, 20
 
 
 def check(cond, msg):
@@ -206,6 +229,54 @@ def bound_ms(n_bytes, flops, flops_per_s=F32_FLOPS):
 def rel_l2(a, b):
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
+
+
+def mix_bytes(C, m, d, masks):
+    """Bytes an f32 relay mix of C clusters of m rows must move: ``masks``
+    (C, m, m) f32 arrays (1: the mask given, 2: A and tau), x read once and
+    the output written once."""
+    return 4 * masks * C * m * m + 8 * C * m * d
+
+
+def ssd_bytes(BH, T, Dk, Dv):
+    """Bytes bf16 kernel 11 must move: q, k, v read once, y written once,
+    and the f32 log decays."""
+    return 2 * (2 * BH * T * Dk + 2 * BH * T * Dv) + 4 * BH * T
+
+
+def ssd_rel_l2(got, want, chunk):
+    """Worst relative L2 of (BH, T, Dv) outputs over their (slice, chunk)
+    blocks, and over their slices."""
+    BH_, T_, _ = want.shape
+    pad = -T_ % chunk
+    sq = [torch.nn.functional.pad(x_.float().pow(2).sum(-1), (0, pad)).reshape(
+        BH_, -1, chunk).sum(-1) for x_ in (got.float() - want.float(), want)]
+    return (float((sq[0] / sq[1]).sqrt().max()),
+            float((sq[0].sum(1) / sq[1].sum(1)).sqrt().max()))
+
+
+def ssd_held(got, want, chunk, what):
+    """Holds bf16 kernel 11's (BH, T, Dv) output to SSD_CHUNK_TOL and
+    SSD_SLICE_TOL; returns the readings as text."""
+    r_chunk, r_slice = ssd_rel_l2(got, want, chunk)
+    check(r_chunk <= SSD_CHUNK_TOL, f"ssd_scan {what}: a chunk is {r_chunk} from its plain "
+          f"version (relative L2), past {SSD_CHUNK_TOL}")
+    check(r_slice <= SSD_SLICE_TOL, f"ssd_scan {what}: a slice is {r_slice} from its plain "
+          f"version (relative L2), past {SSD_SLICE_TOL}")
+    return (f"worst chunk relative L2 {r_chunk:.3e} (tol {SSD_CHUNK_TOL:.3e}), worst slice "
+            f"{r_slice:.3e} (tol {SSD_SLICE_TOL:.3e})")
+
+
+def mamba_views(gen, dev, B, H, T, Dk, Dv):
+    """Kernel 11's operands as the Mamba mixer passes them: q and k one
+    (B, T, 2*Dk) tensor broadcast over the H heads, v (and y) in (B, T, H, Dv)
+    storage, the log decays in (B, T, H); bf16, each (B, H, T, .)."""
+    kq = torch.randn(B, T, 2 * Dk, generator=gen, device=dev, dtype=torch.bfloat16)
+    k, q = (x_[:, None].expand(B, H, T, Dk) for x_ in kq.split(Dk, dim=-1))
+    v = torch.randn(B, T, H, Dv, generator=gen, device=dev,
+                    dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    logd = (-torch.rand(B, T, H, generator=gen, device=dev)).permute(0, 2, 1)
+    return q, k, v, logd
 
 
 def main():
@@ -256,6 +327,13 @@ def main():
             print(f"[build] {kernel_name}: {line.strip()}")
     print("[build] flash_tc_kernel dynamic shared memory per block: " + ", ".join(
         f"D={d_} {lib.repro_flash_tc_smem_bytes(d_)} bytes" for d_ in fl.HEAD_DIMS))
+    print(f"[build] resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+          f"ssd_scan_tc_kernel at chunk 64, Dk 16, Dv 64: {lib.repro_ssd_scan_blocks_per_sm(64, 16, 64)}"
+          f" (Dk 32: {lib.repro_ssd_scan_blocks_per_sm(64, 32, 64)}); relay_mix_kernel f32 "
+          f"16-byte path at m=16: {lib.repro_relay_mix_blocks_per_sm(16, 0, 1)} (m=110: "
+          f"{lib.repro_relay_mix_blocks_per_sm(110, 0, 1)}), scalar path at "
+          f"m=5: {lib.repro_relay_mix_blocks_per_sm(5, 0, 0)}, bf16 16-byte path at m=16: "
+          f"{lib.repro_relay_mix_blocks_per_sm(16, 1, 1)}")
 
     # -- 3. kernels against their plain versions ---------------------------
     n = colrel_paper.full().n_clients
@@ -492,16 +570,16 @@ def main():
 
     # kernel 11, the chunked SSD recurrence, against its plain version: the
     # reference test's shapes and chunks, and the jamba prefill's own shape
-    def ssd_check(shape, chunk, dtype):
+    def ssd_check(shape, chunk, dtype, gen=g, decay=1.0):
         BH_, T_, Dk_, Dv_ = shape
-        q_, k_ = (torch.randn(BH_, T_, Dk_, generator=g).to(dtype).to(dev) for _ in range(2))
-        v_ = torch.randn(BH_, T_, Dv_, generator=g).to(dtype).to(dev)
-        ld_ = (-torch.rand(BH_, T_, generator=g)).to(dev)
+        q_, k_ = (torch.randn(BH_, T_, Dk_, generator=gen).to(dtype).to(dev) for _ in range(2))
+        v_ = torch.randn(BH_, T_, Dv_, generator=gen).to(dtype).to(dev)
+        ld_ = (-torch.rand(BH_, T_, generator=gen) * decay).to(dev)
         before = ssd.ssd_scan_cuda.launches
         got_ = ssd.ssd_scan_cuda(q_, k_, v_, ld_, chunk=chunk)
         launched = ssd.ssd_scan_cuda.launches - before
         want_ = ssd.ssd_scan_plain(q_, k_, v_, ld_, chunk=chunk)
-        what = f"{str(dtype)[6:]} (BH, T, Dk, Dv)={shape} chunk={chunk}"
+        what = f"{str(dtype)[6:]} (BH, T, Dk, Dv)={shape} chunk={chunk} decays x{decay}"
         tol = SSD_TOL[dtype]
         check(launched == 1, f"ssd_scan {what}: launches moved by {launched}, not 1")
         check(got_.shape == want_.shape and got_.dtype == want_.dtype, f"ssd_scan {what}: "
@@ -510,14 +588,18 @@ def main():
         check(bool(torch.all(e <= tol + tol * want_.float().abs())),
               f"ssd_scan {what}: disagrees with its plain version by {float(e.max())}")
         max_err["ssd_scan"] = max(max_err["ssd_scan"], float(e.max()))
+        blk = ", " + ssd_held(got_, want_, chunk, what) if dtype == torch.bfloat16 else ""
         print(f"[kernels] ssd_scan {what} max_abs_err={float(e.max()):.3e} "
-              f"(atol = rtol = {tol}), launches +{launched}")
+              f"(atol = rtol = {tol}){blk}, launches +{launched}")
 
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((2, 128, 8, 16), (1, 64, 4, 4), (3, 96, 16, 32)):
             for chunk in (16, 32):
                 ssd_check(shape, chunk, dtype)
         ssd_check(SSD_PREFILL_SHAPE, 64, dtype)
+    # slow decays: a state that lives across chunks, where the state's
+    # split products (S, k * decay) weigh in the output
+    ssd_check(SSD_PREFILL_SHAPE, 64, torch.bfloat16, torch.Generator().manual_seed(1), 1 / 16)
     torch.cuda.synchronize()
 
     # -- 4. the main path at full width ------------------------------------
@@ -602,8 +684,8 @@ def main():
     # and ops.block_relay_mix: each driven once, its count set to 0 just
     # before and read just after
     stack = flatten.ravel_stacked(deltas)
-    M16 = torch.randn(16, 16, generator=g).to(dev)
-    X16 = torch.randn(16, 2**20, generator=g).to(dev)
+    M16 = torch.randn(MIX_N, MIX_N, generator=g).to(dev)
+    X16 = torch.randn(MIX_N, MIX_D, generator=g).to(dev)
     rm.relay_mix_cuda.launches = rb.block_relay_mix_cuda.launches = 0
     mixed16 = ops.relay_mix(M16, X16)
     cmixed = ops.block_relay_mix(cAb, ctb, stack)
@@ -942,21 +1024,23 @@ def main():
                      launches=brs_launches, max_abs_err=max_err["block_row_stream"],
                      bound_by="bytes", **brs_times))
     Mb = rb.block_mixing_mask(cAb, ctb)
+    mixed_bytes = {"block_relay_mix": mix_bytes(Cc, mc, d_full, 2),
+                   "relay_mix": mix_bytes(1, MIX_N, MIX_D, 1)}
     brm_times = dict(
-        ms=median_ms(lambda: rb.block_relay_mix_cuda(cAb, ctb, X), flush, 100),
+        ms=median_ms(lambda: rb.block_relay_mix_cuda(cAb, ctb, X), flush, MIX_REPS),
         plain_ms=median_ms(lambda: rb.block_relay_mix_plain(cAb, ctb, X), flush, 30),
-        library_ms=median_ms(lambda: torch.bmm(Mb, X.view(Cc, mc, d_full)), flush, 100),
-        bound_ms=bound_ms(8 * n * mc + 8 * n * d_full, 2 * n * mc * d_full))
+        library_ms=median_ms(lambda: torch.bmm(Mb, X.view(Cc, mc, d_full)), flush, MIX_REPS),
+        bound_ms=bound_ms(mixed_bytes["block_relay_mix"], 2 * n * mc * d_full))
     rows.append(dict(name="block_relay_mix", route="cuda",
                      source="src/repro_torch/kernels/csrc/relay_block.cu",
                      replaces="src/repro/kernels/relay_block.py:53",
                      launches=mix_launches["block_relay_mix"],
                      max_abs_err=max_err["block_relay_mix"], bound_by="bytes", **brm_times))
     rmx_times = dict(
-        ms=median_ms(lambda: rm.relay_mix_cuda(M16, X16), flush, 100),
+        ms=median_ms(lambda: rm.relay_mix_cuda(M16, X16), flush, MIX_REPS),
         plain_ms=median_ms(lambda: rm.relay_mix_plain(M16, X16), flush, 30),
-        library_ms=median_ms(lambda: torch.matmul(M16, X16), flush, 100),
-        bound_ms=bound_ms(4 * 16 * 16 + 8 * 16 * 2**20, 2 * 16 * 16 * 2**20))
+        library_ms=median_ms(lambda: torch.matmul(M16, X16), flush, MIX_REPS),
+        bound_ms=bound_ms(mixed_bytes["relay_mix"], 2 * MIX_N * MIX_N * MIX_D))
     rows.append(dict(name="relay_mix", route="cuda",
                      source="src/repro_torch/kernels/csrc/relay_block.cu",
                      replaces="src/repro/kernels/relay_mix.py:43",
@@ -977,7 +1061,10 @@ def main():
     }
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"[time] {r['name']} ({whats[r['name']]}): kernel {r['ms']:.4f} ms, "
+        rate = (f" ({mixed_bytes[r['name']] / r['ms'] / 1e9:.3f} TB/s; library "
+                f"{mixed_bytes[r['name']] / r['library_ms'] / 1e9:.3f} TB/s)"
+                if r["name"] in mixed_bytes else "")
+        print(f"[time] {r['name']} ({whats[r['name']]}): kernel {r['ms']:.4f} ms{rate}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"library {lib} [{card}]")
     print(f"[time] row_stream on the quantized path's 61 int8 segments (sum): kernel "
@@ -1371,6 +1458,11 @@ def main():
             for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
                 print(f"[profile] top device: {e.key[:70]:70s} calls={e.count:6d} "
                       f"ms={e.self_device_time_total / 1e3:9.2f}")
+            for name in ("flash_tc_kernel", "ssd_scan_tc_kernel"):  # kernels 10 and 11
+                hits = [e for e in kernels if name in e.key]
+                if hits:
+                    print(f"[profile] {name}: calls={sum(e.count for e in hits)} ms="
+                          f"{sum(e.self_device_time_total for e in hits) / 1e3:.2f}")
         del j_cache
 
         # the whole period in f32 (1 x 1024: the f32 params take 35.6 GB),
@@ -1412,35 +1504,44 @@ def main():
     logd = -torch.rand(BH, T_, generator=jgen, device=dev)
     # each input read once and the output written once; the products of the
     # live (s <= t) pairs, the inter-chunk term and the state update
-    ssd_bytes = 2 * (2 * BH * T_ * Dk_ + 2 * BH * T_ * Dv_) + 4 * BH * T_
+    ssd_nbytes = ssd_bytes(BH, T_, Dk_, Dv_)
     ssd_flops = BH * (T_ // Q_) * (Q_ * (Q_ + 1) * (Dk_ + Dv_) + 4 * Q_ * Dk_ * Dv_)
     ssd_times = dict(
-        ms=median_ms(lambda: ssd.ssd_scan_cuda(q, k, v, logd, chunk=Q_), flush, 20),
+        ms=median_ms(lambda: ssd.ssd_scan_cuda(q, k, v, logd, chunk=Q_), flush, SSD_REPS),
         plain_ms=median_ms(lambda: ssd.ssd_scan_plain(q, k, v, logd, chunk=Q_), flush, 5),
         library_ms=None,
-        bound_ms=bound_ms(ssd_bytes, ssd_flops, BF16_FLOPS))
+        bound_ms=bound_ms(ssd_nbytes, ssd_flops, BF16_FLOPS))
     # the same work on the views the Mamba mixer passes (q, k broadcast over
     # the heads, v and y in (B, T, H, P) storage)
     H_ = j_cfg.n_ssm_heads
-    kv_src = torch.randn(JB_B, T_, 2 * Dk_, generator=jgen, device=dev, dtype=torch.bfloat16)
-    kb, qb = (x_[:, None].expand(JB_B, H_, T_, Dk_) for x_ in kv_src.split(Dk_, dim=-1))
-    vb = torch.randn(JB_B, T_, H_, Dv_, generator=jgen, device=dev,
-                     dtype=torch.bfloat16).permute(0, 2, 1, 3)
-    lb = (-torch.rand(JB_B, T_, H_, generator=jgen, device=dev)).permute(0, 2, 1)
-    views_ms = median_ms(lambda: ssd.ssd_scan_cuda(qb, kb, vb, lb, chunk=Q_), flush, 20)
+    qb, kb, vb, lb = mamba_views(jgen, dev, JB_B, H_, T_, Dk_, Dv_)
+    views_ms = median_ms(lambda: ssd.ssd_scan_cuda(qb, kb, vb, lb, chunk=Q_), flush, SSD_REPS)
+    got = ssd.ssd_scan_cuda(qb, kb, vb, lb, chunk=Q_)
+    want = ssd.ssd_scan_plain(*(x_.reshape(BH, T_, x_.shape[-1]) for x_ in (qb, kb, vb)),
+                              lb.reshape(BH, T_), chunk=Q_)
+    e = (got.reshape(BH, T_, Dv_).float() - want.float()).abs()
+    tol = SSD_TOL[torch.bfloat16]
+    check(bool(torch.all(e <= tol + tol * want.float().abs())),
+          f"ssd_scan on the Mamba views at the prefill shape: disagrees with its plain version "
+          f"by {float(e.max())}")
+    max_err["ssd_scan"] = max(max_err["ssd_scan"], float(e.max()))
+    blk = ssd_held(got.reshape(BH, T_, Dv_), want, Q_, "on the Mamba views at the prefill shape")
+    print(f"[kernels] ssd_scan bf16 on the Mamba views at the prefill shape "
+          f"max_abs_err={float(e.max()):.3e} (atol = rtol = {tol}), {blk}")
+    del got, want, e
     rows.append(dict(name="ssd_scan", route="cuda",
                      source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                      replaces="src/repro/kernels/ssd_scan.py:73",
                      launches=j_launches["ssd_scan"], max_abs_err=max_err["ssd_scan"],
-                     bound_by="operations" if ssd_flops / BF16_FLOPS > ssd_bytes / HBM_BYTES_PER_S
-                     else "bytes", **ssd_times))
+                     bound_by="operations" if ssd_flops / BF16_FLOPS > ssd_nbytes / HBM_BYTES_PER_S
+                     else "bytes", views_ms=views_ms, **ssd_times))
     print(f"[time] ssd_scan (one launch, (BH, T, Dk, Dv)={SSD_PREFILL_SHAPE} chunk {Q_} bf16; "
-          f"{ssd_flops / 1e9:.1f} GFLOP, {ssd_bytes / 1e9:.3f} GB): kernel {ssd_times['ms']:.4f} "
-          f"ms ({ssd_bytes / ssd_times['ms'] / 1e9:.3f} TB/s), bound {ssd_times['bound_ms']:.4f} "
+          f"{ssd_flops / 1e9:.1f} GFLOP, {ssd_nbytes / 1e9:.3f} GB): kernel {ssd_times['ms']:.4f} "
+          f"ms ({ssd_nbytes / ssd_times['ms'] / 1e9:.3f} TB/s), bound {ssd_times['bound_ms']:.4f} "
           f"ms (bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), plain {ssd_times['plain_ms']:.4f} "
           f"ms, library null: no single PyTorch call computes the SSD recurrence; on the Mamba "
           f"mixer's views (q, k broadcast over {H_} heads, v and y in (B, T, H, P) storage) "
-          f"{views_ms:.4f} ms [{card}]")
+          f"{views_ms:.4f} ms ({ssd_nbytes / views_ms / 1e9:.3f} TB/s) [{card}]")
 
     print(card)
     print(json.dumps({"kernels": rows}))

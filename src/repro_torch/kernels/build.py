@@ -59,6 +59,10 @@ _SIGNATURES = {
     # (q, k, v, log_decay, out, strides[15], BH, H, T, Dk, Dv, chunk, dtype, stream)
     "repro_ssd_scan": (_P, _P, _P, _P, _P, ctypes.POINTER(_I64), _I, _I, _I, _I, _I, _I, _I,
                        _P),
+    # occupancy, blocks an SM: (chunk, Dk, Dv) of the bf16 SSD kernel; (m, dtype,
+    # vector path) of the relay mix
+    "repro_ssd_scan_blocks_per_sm": (_I, _I, _I),
+    "repro_relay_mix_blocks_per_sm": (_I, _I, _I),
 }
 
 

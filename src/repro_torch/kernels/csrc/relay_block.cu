@@ -45,13 +45,27 @@
 //   weighted_rows): all of a thread's rows in flight before its first add,
 //   a grid sized so every block is resident at once, 16-byte loads when
 //   the rows are 16-byte aligned, else the scalar path.
-// * The relay mixes give each block one cluster's (m, m) mask in shared
-//   memory (computed as A_c * tau_c^T, or copied when given) and a range of
-//   columns, one column per thread.  A thread sums 16 output rows at a time
-//   in registers over j = 0..m-1 in order, re-reading x[:, col] from L1 for
-//   each group of 16, so device memory sees X once.  m*m floats must fit
-//   the 48 KB a launch gets without opting in: m <= 110 (the wrappers raise
-//   past it).
+// * The relay mixes (bytes above; their products, rounded one by one, are
+//   2*n*m*d FP32 instructions, 537 M at n = 16, d = 2^20, ~18 us of issue
+//   beside 40 us of bytes).  A thread requests the loads of a whole row
+//   group before its first product: one 16-byte word a row (V consecutive
+//   columns) when the rows of x and out are 16-byte aligned, else 4
+//   scalars 32 columns apart (a warp's 128 columns in 4 coalesced loads a
+//   row).  At m <= 16 all m rows stay in registers while 16 / V output rows
+//   at a time are summed against the mask in shared memory, so each byte
+//   of x is read once.  At m > 16 a thread takes 4 columns (an 8-byte word
+//   in bf16) and sums R output rows at a time, streaming x in groups of 4
+//   rows: ceil(m / R) passes over x, the later ones from L2 as far as the
+//   resident blocks' rows fit there; R = 16 on the vector path and 8 on
+//   the scalar one (3 blocks an SM instead of 2).  Stores are 16-byte (8-byte) streaming
+//   stores (st.global.cs: the output is not read back), or coalesced
+//   scalars.  The grid is one wave sized from the kernel's occupancy
+//   (resident_blocks), each block's columns a whole number of a warp's
+//   passes so that the blocks spread evenly over the SMs: blockIdx.y walks
+//   the clusters and blockIdx.x a range of columns, so a block stages one
+//   cluster's (m, m) mask (computed as A_c * tau_c^T, or copied when given)
+//   and walks its columns.  m*m floats must fit the 48 KB a launch gets
+//   without opting in: m <= 110 (the wrappers raise past it).
 //
 // Arithmetic: f32, products and sums rounded separately (__fmul_rn /
 // __fadd_rn, no FMA contraction), sums in index order, the collapse scaled
@@ -67,8 +81,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kRowGroup = 16;  // output rows a relay-mix thread sums at once
 
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -106,42 +118,179 @@ block_stream_kernel(const float* __restrict__ w, const T* __restrict__ x,
                       [] { asm volatile("griddepcontrol.wait;" ::: "memory"); });
 }
 
-// out[c*m + i, col] = sum_j mask_c[i, j] * x[c*m + j, col], j in order;
-// blockIdx.y is the cluster, blockIdx.x a range of kThreads columns.
-template <typename T, bool kGivenMask>
-__global__ void __launch_bounds__(kThreads)
-relay_mix_kernel(const float* __restrict__ A, const float* __restrict__ tau,
-                 const T* __restrict__ x, T* __restrict__ out, int m, int64_t d) {
-  extern __shared__ float mask[];
-  const int c = blockIdx.y;
-  const int64_t mm = static_cast<int64_t>(m) * m;
-  for (int k = threadIdx.x; k < m * m; k += blockDim.x) {
-    if constexpr (kGivenMask) {
-      mask[k] = A[k];
+// -- the relay mixes (kernels 3 and 7) ----------------------------------------
+//
+// out[c*m + i, col] = sum_j mask_c[i, j] * x[c*m + j, col], j in order, for
+// the clusters c = blockIdx.y, blockIdx.y + gridDim.y, ... and the columns
+// [blockIdx.x * cols, min((blockIdx.x + 1) * cols, d)).
+constexpr int kMixBatch = 16;  // rows of x a thread holds in registers at m <= 16
+
+// A thread's columns: a 16-byte word on the vector path at m <= 16, else 4.
+template <typename T, bool kVec, bool kTall>
+constexpr int kMixCols = kVec && !kTall ? static_cast<int>(16 / sizeof(T)) : 4;
+
+// One row's V columns of a thread, as loaded.  The vector path (rows of x
+// and out 16-byte aligned) takes V consecutive columns in one word of up to
+// 16 bytes; the scalar path takes V columns 32 apart, so that a warp's 32*V
+// columns are V coalesced loads a row and a thread has V loads a row in
+// flight.
+template <int kBytes>
+struct WordOf;
+template <>
+struct WordOf<16> {
+  using type = uint4;
+};
+template <>
+struct WordOf<8> {
+  using type = uint2;
+};
+template <>
+struct WordOf<4> {
+  using type = unsigned int;
+};
+
+template <typename T, bool kVec, int V>
+struct MixRow;
+
+template <typename T, int V>
+struct MixRow<T, true, V> {
+  using Word = typename WordOf<static_cast<int>(V * sizeof(T))>::type;
+  Word w;
+  __device__ __forceinline__ void load(const T* __restrict__ p, int64_t, int64_t) {
+    w = __ldg(reinterpret_cast<const Word*>(p));
+  }
+  __device__ __forceinline__ void widen(float (&x)[V]) const {
+    const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+    for (int k = 0; k < V; ++k) x[k] = to_f32(e[k]);
+  }
+};
+
+template <typename T, int V>
+struct MixRow<T, false, V> {
+  static constexpr int kApart = 32;  // between a thread's columns
+  T e[V];
+  __device__ __forceinline__ void load(const T* __restrict__ p, int64_t col, int64_t c1) {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (col + kApart * k < c1) e[k] = p[kApart * k];
+  }
+  __device__ __forceinline__ void widen(float (&x)[V]) const {
+#pragma unroll
+    for (int k = 0; k < V; ++k) x[k] = to_f32(e[k]);
+  }
+};
+
+// V consecutive values rounded to T, in one streaming store of V*sizeof(T)
+// bytes (st.global.cs: the output is not read back)
+template <typename T, int V>
+__device__ __forceinline__ void store_stream(T* p, const float (&v)[V]) {
+  constexpr int kWords = static_cast<int>(V * sizeof(T) / 4);
+  uint32_t w[kWords];
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    if constexpr (sizeof(T) == 4) {
+      w[q] = __float_as_uint(v[q]);
     } else {
-      const int i = k / m, j = k - i * m;
-      mask[k] = __fmul_rn(A[c * mm + k], tau[c * mm + j * m + i]);
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+      w[q] = *reinterpret_cast<const uint32_t*>(&h);
     }
   }
-  __syncthreads();
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (col >= d) return;
-  const T* xc = x + static_cast<int64_t>(c) * m * d + col;
-  T* oc = out + static_cast<int64_t>(c) * m * d + col;
-  for (int i0 = 0; i0 < m; i0 += kRowGroup) {
-    float acc[kRowGroup];
-#pragma unroll
-    for (int r = 0; r < kRowGroup; ++r) acc[r] = 0.0f;
-    for (int j = 0; j < m; ++j) {
-      float xv[1];
-      load_cols<T, 1>(xc + static_cast<int64_t>(j) * d, xv);
-#pragma unroll
-      for (int r = 0; r < kRowGroup; ++r)
-        if (i0 + r < m) acc[r] = __fadd_rn(acc[r], __fmul_rn(mask[(i0 + r) * m + j], xv[0]));
+  if constexpr (kWords == 4) {
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(w[0]), "r"(w[1]),
+                 "r"(w[2]), "r"(w[3])
+                 : "memory");
+  } else if constexpr (kWords == 2) {
+    asm volatile("st.global.cs.v2.u32 [%0], {%1, %2};" ::"l"(p), "r"(w[0]), "r"(w[1])
+                 : "memory");
+  } else {
+    asm volatile("st.global.cs.u32 [%0], %1;" ::"l"(p), "r"(w[0]) : "memory");
+  }
+}
+
+// Two shapes of the same sums.  At m <= 16 (kTall false) all m rows of x
+// stay in registers while R = 16 / V output rows at a time are summed, so x
+// is read once.  At m > 16 (kTall true) a thread takes 4 columns and sums R
+// output rows at a time, streaming x in groups of 4 rows, so x is read
+// ceil(m / R) times: R = 16 on the vector path (128 registers, 2 blocks an
+// SM), 8 on the scalar one (80 registers, 3 blocks an SM, which measured
+// faster there than 16 rows at 2 blocks).
+template <typename T, bool kVec, bool kGivenMask, bool kTall>
+__global__ void __launch_bounds__(kThreads)
+relay_mix_kernel(const float* __restrict__ A, const float* __restrict__ tau,
+                 const T* __restrict__ x, T* __restrict__ out, int C, int m, int64_t d,
+                 int64_t cols) {
+  constexpr int V = kMixCols<T, kVec, kTall>;
+  constexpr int R = kTall ? (kVec ? 16 : 8) : 16 / V;  // output rows at once
+  constexpr int kBatch = kTall ? 4 : kMixBatch;
+  using Row = MixRow<T, kVec, V>;
+  extern __shared__ float mask[];
+  const int64_t mm = static_cast<int64_t>(m) * m;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cols;
+  const int64_t c1 = c0 + cols < d ? c0 + cols : d;
+  const int64_t step = static_cast<int64_t>(blockDim.x) * V;
+  const int64_t first = kVec ? c0 + static_cast<int64_t>(threadIdx.x) * V
+                             : c0 + (threadIdx.x / 32) * 32 * V + threadIdx.x % 32;
+  for (int c = blockIdx.y; c < C; c += gridDim.y) {
+    if (c != static_cast<int>(blockIdx.y)) __syncthreads();  // the last cluster's mask is read
+    for (int k = threadIdx.x; k < mm; k += blockDim.x) {
+      if constexpr (kGivenMask) {
+        mask[k] = A[k];
+      } else {
+        const int i = k / m, j = k - i * m;
+        mask[k] = __fmul_rn(A[c * mm + k], tau[c * mm + j * m + i]);
+      }
     }
+    __syncthreads();
+    const T* xc = x + static_cast<int64_t>(c) * m * d;
+    T* oc = out + static_cast<int64_t>(c) * m * d;
+    for (int64_t col = first; col < c1; col += step) {
+      Row rows[kBatch];
+      auto load = [&](int j0) {
 #pragma unroll
-    for (int r = 0; r < kRowGroup; ++r)
-      if (i0 + r < m) store_f32(oc + static_cast<int64_t>(i0 + r) * d, acc[r]);
+        for (int r = 0; r < kBatch; ++r)
+          if (j0 + r < m) rows[r].load(xc + static_cast<int64_t>(j0 + r) * d + col, col, c1);
+      };
+      if constexpr (!kTall) load(0);
+      for (int i0 = 0; i0 < m; i0 += R) {
+        float acc[R][V];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[r][k] = 0.0f;
+        for (int j0 = 0; j0 < (kTall ? m : 1); j0 += kBatch) {  // m <= kBatch if !kTall
+          if constexpr (kTall) load(j0);
+#pragma unroll
+          for (int jj = 0; jj < kBatch; ++jj) {
+            if (j0 + jj < m) {
+              float xv[V];
+              rows[jj].widen(xv);
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                if (i0 + r < m) {
+                  const float w = mask[(i0 + r) * m + j0 + jj];
+#pragma unroll
+                  for (int k = 0; k < V; ++k) acc[r][k] = __fadd_rn(acc[r][k], __fmul_rn(w, xv[k]));
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (i0 + r < m) {
+            T* o = oc + static_cast<int64_t>(i0 + r) * d + col;
+            if constexpr (kVec) {
+              store_stream(o, acc[r]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < V; ++k)
+                if (col + Row::kApart * k < c1) store_f32(o + Row::kApart * k, acc[r][k]);
+            }
+          }
+        }
+      }
+    }
   }
 }
 
@@ -176,14 +325,54 @@ cudaError_t launch_stream(const float* w, const void* x, float* out, int n, int6
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// One wave: the card's resident blocks shared out among the clusters, each
+// block's columns a whole number of a warp's passes (32 * V), so that the
+// blocks spread evenly over the SMs (a thread may make one pass more than
+// another of its block).
+template <typename T, bool kVec, bool kGivenMask, bool kTall>
+cudaError_t launch_mix_v(const float* A, const float* tau, const T* x, T* out, int C, int m,
+                         int64_t d, cudaStream_t stream) {
+  constexpr int V = kMixCols<T, kVec, kTall>;
+  const size_t smem = static_cast<size_t>(m) * m * sizeof(float);
+  const int64_t resident =
+      resident_blocks((const void*)relay_mix_kernel<T, kVec, kGivenMask, kTall>, smem);
+  const int64_t per_cluster = resident > C ? resident / C : 1;
+  const int64_t share = (d + per_cluster - 1) / per_cluster, unit = 32 * V;
+  const int64_t cols = (share + unit - 1) / unit * unit;
+  const dim3 grid(stream_grid(d, cols).x, static_cast<unsigned>(C < 65535 ? C : 65535));
+  relay_mix_kernel<T, kVec, kGivenMask, kTall><<<grid, kThreads, smem, stream>>>(
+      A, tau, x, out, C, m, d, cols);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kGivenMask, bool kTall>
+cudaError_t launch_mix_t(const float* A, const float* tau, const void* x, void* out, int C,
+                         int m, int64_t d, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  return rows_aligned<T>(x, d) && rows_aligned<T>(out, d)
+             ? launch_mix_v<T, true, kGivenMask, kTall>(A, tau, xt, ot, C, m, d, stream)
+             : launch_mix_v<T, false, kGivenMask, kTall>(A, tau, xt, ot, C, m, d, stream);
+}
+
 template <typename T, bool kGivenMask>
 cudaError_t launch_mix(const float* A, const float* tau, const void* x, void* out, int C,
                        int m, int64_t d, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((d + kThreads - 1) / kThreads), static_cast<unsigned>(C));
+  return m > kMixBatch ? launch_mix_t<T, kGivenMask, true>(A, tau, x, out, C, m, d, stream)
+                       : launch_mix_t<T, kGivenMask, false>(A, tau, x, out, C, m, d, stream);
+}
+
+template <typename T, bool kVec>
+int mix_blocks_per_sm(int m) {
+  int per_sm = 0;
   const size_t smem = static_cast<size_t>(m) * m * sizeof(float);
-  relay_mix_kernel<T, kGivenMask><<<grid, kThreads, smem, stream>>>(
-      A, tau, static_cast<const T*>(x), static_cast<T*>(out), m, d);
-  return cudaGetLastError();
+  const cudaError_t err =
+      m > kMixBatch
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, relay_mix_kernel<T, kVec, true, true>, kThreads, smem)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, relay_mix_kernel<T, kVec, true, false>, kThreads, smem);
+  return err == cudaSuccess ? per_sm : -1;
 }
 
 }  // namespace
@@ -237,5 +426,17 @@ extern "C" int repro_relay_mix(const float* mix, const void* x, void* out, int n
     case kF32: return launch_mix<float, true>(mix, nullptr, x, out, 1, n, d, s);
     case kBF16: return launch_mix<__nv_bfloat16, true>(mix, nullptr, x, out, 1, n, d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks of the relay-mix kernel one SM holds for an (m, m) mask, on the
+// 16-byte path (vector != 0) or the scalar one; -1 if the query fails.
+extern "C" int repro_relay_mix_blocks_per_sm(int m, int dtype, int vector) {
+  switch (dtype) {
+    case kF32: return vector ? mix_blocks_per_sm<float, true>(m) : mix_blocks_per_sm<float, false>(m);
+    case kBF16:
+      return vector ? mix_blocks_per_sm<__nv_bfloat16, true>(m)
+                    : mix_blocks_per_sm<__nv_bfloat16, false>(m);
+    default: return -1;
   }
 }

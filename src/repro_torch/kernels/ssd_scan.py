@@ -10,8 +10,9 @@ by chunk with ``c`` the chunk-local inclusive cumsum of the log decays::
 
 q, k ``(..., T, Dk)``, v ``(..., T, Dv)`` f32 or bf16, log_decay ``(..., T)``
 f32 and non-positive; the output ``(..., T, Dv)`` in q's dtype; f32 inside.
-One CUDA block owns one slice and loops over its chunks with the state in
-shared memory (design and bound in ``csrc/ssd_scan.cu``).
+One CUDA block owns one slice and loops over its chunks, carrying the
+state itself; bf16 runs its products on the tensor cores, f32 on the CUDA
+cores (design and bound in ``csrc/ssd_scan.cu``).
 
 The leading dims ``...`` are ``(BH,)``, the reference's interface, or
 ``(B, H)``.  The kernel takes strided views in the second form, so Mamba
@@ -23,7 +24,8 @@ The wrapper checks its inputs, launches on the current stream without
 synchronising, counts its launches in ``launches`` and takes CUDA tensors
 only; :mod:`repro_torch.kernels.ops` sends CPU tensors to the plain
 version.  The two agree within 5e-4 in f32 (the reference's bound for its
-kernel), not to the bit: the products sum in another order.
+kernel) and 2e-2 in bf16, not to the bit: the products sum in another
+order, and the bf16 kernel keeps its f32 operands as two bf16 parts.
 """
 
 from __future__ import annotations

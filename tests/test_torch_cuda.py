@@ -245,10 +245,13 @@ def test_block_segments_equal_monolithic_on_the_card(dev):
     assert torch.equal(torch.cat(parts), mono)
 
 
-@pytest.mark.parametrize("n", [4, 10, 16, 33, 110])
-@pytest.mark.parametrize("d", [1, 1000, 4099])
+@pytest.mark.parametrize("n", [1, 4, 10, 16, 33, 64, 110])
+@pytest.mark.parametrize("d", [1, 3, 1000, 4097, 4099, 2**20, 2**20 + 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_relay_mix_kernel_matches_plain_bitwise(dev, n, d, dtype):
+    """Rows of 2^20 elements (and of 1000 in f32) take the 16-byte path,
+    the rest the scalar one; n past 16 takes the streaming form (x in
+    4-row groups, 16 or 8 output rows at a time)."""
     g = torch.Generator().manual_seed(n + d)
     M = torch.randn(n, n, generator=g).to(dev)
     X = torch.randn(n, d, generator=g).to(dtype).to(dev)
@@ -257,6 +260,37 @@ def test_relay_mix_kernel_matches_plain_bitwise(dev, n, d, dtype):
     torch.cuda.synchronize()
     assert rm.relay_mix_cuda.launches == before + 1
     assert got.dtype == dtype and torch.equal(got, rm.relay_mix_plain(M, X))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relay_mix_kernel_reads_a_row_misaligned_stack(dev, dtype):
+    """A stack that starts at element 1 of its storage: every row is off the
+    16-byte grid though d is a whole number of 16-byte words."""
+    n, d = 16, 4096
+    g = torch.Generator().manual_seed(5)
+    X = torch.randn(n * d + 1, generator=g).to(dtype).to(dev)[1:].view(n, d)
+    assert X.data_ptr() % 16 != 0
+    M = torch.randn(n, n, generator=g).to(dev)
+    got = rm.relay_mix_cuda(M, X)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rm.relay_mix_plain(M, X))
+
+
+@pytest.mark.parametrize("C,m", [(1, 1), (2, 5), (4, 16), (3, 17), (8, 33), (2, 110), (300, 4),
+                                 (70000, 1)])
+@pytest.mark.parametrize("d", [3, 1024, 4097])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_relay_mix_kernel_matches_plain_bitwise(dev, C, m, d, dtype):
+    """Clusters past the grid's 65,535 rows (C = 70,000) are walked by the
+    blocks in turn, each staging its cluster's mask."""
+    if C * m * d > 2**24:
+        d = 8
+    Ab, _, tau_b, X = _blocks(C, m, d, dtype, dev, seed=C + m + d)
+    before = rb.block_relay_mix_cuda.launches
+    got = rb.block_relay_mix_cuda(Ab, tau_b, X)
+    torch.cuda.synchronize()
+    assert rb.block_relay_mix_cuda.launches == before + 1
+    assert torch.equal(got, rb.block_relay_mix_plain(Ab, tau_b, X))
 
 
 def test_block_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -460,12 +494,15 @@ def _ssd_inputs(shape, dtype, dev, seed):
                                          ((1, 64, 4, 4), 16), ((1, 64, 4, 4), 32),
                                          ((3, 96, 16, 32), 16), ((3, 96, 16, 32), 32),
                                          ((8, 256, 16, 64), 64), ((2, 128, 32, 64), 64),
-                                         ((2, 30, 5, 8), 10)])
+                                         ((2, 30, 5, 8), 10), ((2, 64, 16, 64), 64),
+                                         ((4, 16, 8, 16), 16), ((2, 1, 4, 4), 1),
+                                         ((3, 33, 32, 32), 33)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(dev, shape, chunk, dtype):
     """The reference test's shapes and chunks, jamba's per-head shape
-    (Dk 16, Dv 64, chunk 64), the largest shared-memory case (Dk 32) and a
-    chunk off the 4-row tiles."""
+    (Dk 16, Dv 64, chunk 64), the largest shared-memory case (Dk 32), a
+    chunk off the 4-row tiles, and T equal to one chunk (no state carried,
+    nothing prefetched)."""
     q, k, v, logd = _ssd_inputs(shape, dtype, dev, seed=sum(shape) + chunk)
     before = ssd.ssd_scan_cuda.launches
     got = ssd.ssd_scan_cuda(q, k, v, logd, chunk=chunk)
@@ -477,23 +514,45 @@ def test_ssd_scan_kernel_matches_plain(dev, shape, chunk, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("chunk", [1, 10, 16, 33, 64])
+@pytest.mark.parametrize("dk", [4, 5, 16, 32])
+@pytest.mark.parametrize("dv", ssd.VALUE_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_scan_takes_the_mamba_views(dev, dtype):
+def test_ssd_scan_kernel_covers_every_tile_class(dev, chunk, dk, dv, dtype):
+    """Every (chunk, Dk, Dv) class the wrapper admits, three chunks a
+    slice: chunks off the 16-row MMA tiles, Dk below, at and past one
+    16-wide k-step (4 and 5 take element copies), each value width."""
+    q, k, v, logd = _ssd_inputs((3, 3 * chunk, dk, dv), dtype, dev, seed=chunk + dk + dv)
+    got = ssd.ssd_scan_cuda(q, k, v, logd, chunk=chunk)
+    want = ssd.ssd_scan_plain(q, k, v, logd, chunk=chunk)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("N", [5, 16, 32])
+@pytest.mark.parametrize("P", [4, 16, 64])
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("offset", [40, 41])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_takes_the_mamba_views(dev, N, P, chunk, offset, dtype):
     """(B, H, T, .) operands as the Mamba mixer passes them: q and k one
     (B, T, N) slice of a wider tensor broadcast over the heads, v a
-    (B, T, H, P) tensor permuted; the output comes back in v's layout."""
-    B, T, H, N, P = 2, 128, 6, 16, 64
+    (B, T, H, P) tensor permuted; the output comes back in v's layout.  q
+    and k start on the 16-byte grid (offset 40, N = 16, 32: 16-byte copies)
+    or off it (offset 41, or N = 5: element copies)."""
+    B, T, H = 2, 128, 6
     g = torch.Generator().manual_seed(0)
-    xbc = torch.randn(B, T, 40 + 2 * N, generator=g).to(dtype).to(dev)
-    k, q = (t[:, None].expand(B, H, T, N) for t in (xbc[..., 40:40 + N], xbc[..., 40 + N:]))
+    xbc = torch.randn(B, T, offset + 2 * N, generator=g).to(dtype).to(dev)
+    k, q = (t[:, None].expand(B, H, T, N)
+            for t in (xbc[..., offset:offset + N], xbc[..., offset + N:]))
     v = torch.randn(B, T, H, P, generator=g).to(dtype).to(dev).permute(0, 2, 1, 3)
     logd = (-torch.rand(B, T, H, generator=g)).to(dev).permute(0, 2, 1)
     before = ssd.ssd_scan_cuda.launches
-    got = ops.ssd_scan(q, k, v, logd, chunk=64)
+    got = ops.ssd_scan(q, k, v, logd, chunk=chunk)
     assert ssd.ssd_scan_cuda.launches == before + 1
     assert got.shape == (B, H, T, P) and got.permute(0, 2, 1, 3).is_contiguous()
     flat = [x.reshape(B * H, T, x.shape[-1]).contiguous() for x in (q, k, v)]
-    want = ssd.ssd_scan_plain(*flat, logd.reshape(B * H, T).contiguous(), chunk=64)
+    want = ssd.ssd_scan_plain(*flat, logd.reshape(B * H, T).contiguous(), chunk=chunk)
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(got.reshape(B * H, T, P).float(), want.float(), atol=tol, rtol=tol)
 

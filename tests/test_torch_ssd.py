@@ -77,6 +77,24 @@ def test_ssd_scan_plain_matches_pallas_kernel(shape, chunk, dtype):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("shape", [(2, 128, 16, 64), (1, 64, 16, 64), (2, 128, 32, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_plain_matches_pallas_kernel_at_the_prefill_class(shape, dtype):
+    """The jamba prefill's per-slice class (Dk 16, Dv 64, chunk 64), which
+    ``SHAPES`` never reach, at small BH and T: two chunks, one chunk, and
+    the widest key dim the kernel takes."""
+    q, k, v, logd = _scan_inputs(shape, seed=sum(shape))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = ssd_scan_pallas(*(jnp.asarray(x).astype(jdt) for x in (q, k, v)), jnp.asarray(logd),
+                           chunk=64, interpret=True)
+    got = ssd.ssd_scan_plain(*(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+                             torch.from_numpy(logd), chunk=64)
+    assert got.shape == want.shape and got.dtype == dtype
+    tol = KERNEL_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_ssd_scan_plain_matches_reference_oracle(shape):
     """Against ``kernels/ref.py:ssd_scan_ref``, the oracle the reference
