@@ -15,7 +15,10 @@ each of which fails the run by raising:
    shapes of the main path and at off-grid ones: the ColRel aggregation
    kernels, the memory strategy's kernels (segment passes writing into
    strided views of one buffer, held to the monolithic kernel at 0), the
-   int8 dequant kernel, and bitwise: the clustered kernels (block relay
+   int8 dequant kernel, and bitwise: the grouped launches of kernels 2
+   (f32, bf16, int8) and 5 (f32, bf16) over the 61 cifar_cnn_full segments
+   against their plain versions, the per-segment and the monolithic
+   kernels; the clustered kernels (block relay
    mix, block aggregation, block row stream) up to n = 16,384 as 256
    clusters of 64, the dense relay mix, the clustered kernels at C = 1
    against the dense ones, and block segments against the monolithic
@@ -27,7 +30,9 @@ each of which fails the run by raising:
    then the quadratic task on the card against the port's CPU path; then
    three rounds of the memory strategy under bursty (Markov) blockage and
    of the int8 quantized strategy, each through its kernel, its segment
-   and its plain (fused=False) path, launches read around each run; the
+   and its plain (fused=False) path, launches read around each run (the
+   segmented colrel, memory and quantized paths launch their grouped
+   kernel once a round); the
    relay mixes through their entry points (ops.relay_mix at the kernel
    benchmark's n=16, d=2^20, ops.block_relay_mix on cifar_cnn_full
    deltas); three rounds of clustered relaying of cifar_cnn_full (n=10 as
@@ -39,7 +44,9 @@ each of which fails the run by raising:
    fused=False;
 5. times of each kernel at the main path's shapes beside its bound, its
    plain version and one PyTorch call computing the same product where
-   there is one;
+   there is one; kernels 2 and 5 as the segmented paths launch them, one
+   grouped call over the 61 segments, beside the sum of their 61
+   per-segment launches each timed alone (per_segment_ms);
 6. where one more round of the kernel path spends its time
    (torch.profiler): the device's busy share and the top operations;
 7. serving seamless-m4t-large-v2 at full width (24 + 24 layers, d_model
@@ -358,6 +365,13 @@ def main():
         check(bool(torch.all(e <= 1e-5 + 1e-5 * want.abs())), f"kernel disagrees: max abs {e.max()}")
         return float(e.max())
 
+    def exact_row(name, got, want, what):
+        check(got.shape == want.shape and got.dtype == want.dtype, f"{name} {what}: shape/dtype")
+        e = float((got - want).abs().max())
+        check(torch.equal(got, want), f"{name} {what}: differs by {e}")
+        max_err[name] = max(max_err[name], e)
+        return e
+
     max_err = dict.fromkeys(("fused_aggregate", "row_stream", "fused_memory_update",
                              "memory_stream", "fused_dequant_aggregate", "relay_mix",
                              "block_relay_mix", "block_fused_aggregate", "block_row_stream",
@@ -388,6 +402,28 @@ def main():
     seg_err = float((segs - mono).abs().max())
     check(seg_err <= 1e-6, f"segmented vs monolithic kernel: {seg_err}")
     print(f"[kernels] segmented vs monolithic at n={n} d={d_full}: max_abs_err={seg_err:.3e}")
+    # the grouped launch over the 61 segments, bitwise: against its plain
+    # version, the per-segment kernel and the monolithic kernel (1, or 6 for
+    # int8)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        A, tau_up, tau_dd, X = inputs(n, d_full, dtype)
+        w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+        if dtype == torch.int8:
+            scale = torch.full((n, 1), 1 / 40, device=dev)
+            w = ops.fold_dequant_scales(w, scale)
+            mono = fdq.fused_dequant_aggregate_cuda(A, tau_up, tau_dd, X, scale)
+        else:
+            mono = fa.fused_aggregate_cuda(A, tau_up, tau_dd, X)
+        segs = [s.contiguous() for s in X.split(full_sizes, dim=1)]
+        got = fa.row_stream_segments_cuda(w, segs)
+        e = exact_row("row_stream", got, fa.row_stream_segments_plain(w, segs),
+                      f"grouped {str(dtype)[6:]} vs its plain version")
+        check(torch.equal(got, torch.cat([fa.row_stream_cuda(w, s) for s in segs])),
+              f"row_stream grouped {dtype} vs the per-segment kernel")
+        check(torch.equal(got, mono), f"row_stream grouped {dtype} vs the monolithic kernel")
+        print(f"[kernels] row_stream_segments {str(dtype)[6:]}, one launch over the 61 segments: "
+              f"max_abs_err={e:.3e} vs plain; == the per-segment kernel and the monolithic "
+              f"kernel, bitwise")
 
     def buffer_for(n_, d_):
         return torch.randn(n_, d_, generator=g).to(dev)
@@ -429,6 +465,21 @@ def main():
         print(f"[kernels] memory_stream {str(dtype)[6:]} over the 61 segments into strided "
               f"buffer views: max_abs_err={worst:.3e} vs plain; segmented vs monolithic "
               f"(delta and buffer) max_abs_err={seg_err:.3e}")
+        # the grouped launch over the same 61 segments into the whole buffer
+        grouped_buf, plain_buf = B.clone(), B.clone()
+        segs = [s_.contiguous() for s_ in X.split(full_sizes, dim=1)]
+        got, out = fm.memory_stream_segments_cuda(mix, tau_up, segs, grouped_buf)
+        check(out is grouped_buf, "memory_stream_segments returned another buffer")
+        want, _ = fm.memory_stream_segments_plain(mix, tau_up, segs, plain_buf)
+        e = max(exact_row("memory_stream", got, want, f"grouped {str(dtype)[6:]} delta"),
+                exact_row("memory_stream", grouped_buf, plain_buf, f"grouped {str(dtype)[6:]} buffer"))
+        check(torch.equal(got, torch.cat(deltas)) and torch.equal(grouped_buf, buf),
+              f"memory grouped {dtype} vs the per-segment kernel")
+        check(torch.equal(got, mono) and torch.equal(grouped_buf, mono_buf),
+              f"memory grouped {dtype} vs the monolithic kernel")
+        print(f"[kernels] memory_stream_segments {str(dtype)[6:]}, one launch over the 61 "
+              f"segments: max_abs_err={e:.3e} vs plain (delta and buffer); == the per-segment "
+              f"kernel and the monolithic kernel, bitwise")
     for n_ in (4, 10, 33):
         for d_ in (1, 1000, 4099, d_full):
             A, tau_up, tau_dd, q = inputs(n_, d_, torch.int8)
@@ -703,8 +754,10 @@ def main():
     del deltas, agg, mem, quant, buf0, cagg, stack, cmixed, mixed16
 
     wrappers = {"fused_aggregate": fa.fused_aggregate_cuda, "row_stream": fa.row_stream_cuda,
+                "row_stream_segments": fa.row_stream_segments_cuda,
                 "fused_memory_update": fm.fused_memory_update_cuda,
                 "memory_stream": fm.memory_stream_cuda,
+                "memory_stream_segments": fm.memory_stream_segments_cuda,
                 "fused_dequant_aggregate": fdq.fused_dequant_aggregate_cuda,
                 "relay_mix": rm.relay_mix_cuda, "block_relay_mix": rb.block_relay_mix_cuda,
                 "block_fused_aggregate": rb.block_fused_aggregate_cuda,
@@ -769,8 +822,8 @@ def main():
                                expect={"fused_aggregate": ROUNDS})
     fa_launches = counts["fused_aggregate"]
     seg_exp, counts = drive("colrel segmented", "colrel", {"fused": "kernel"}, 1,
-                            expect={"row_stream": ROUNDS * N_LEAVES})
-    rs_launches = counts["row_stream"]
+                            expect={"row_stream_segments": ROUNDS})
+    rs_launches = counts["row_stream_segments"]
     col_exp, _ = drive("colrel collapse", "colrel", {"fused": "collapse"}, 0, expect={})
     compare("colrel kernel", kernel_exp, (("segmented", seg_exp, PARAM_ATOL),
                                           ("collapse", col_exp, PARAM_ATOL)))
@@ -780,8 +833,8 @@ def main():
                             expect={"fused_memory_update": ROUNDS})
     fmu_launches = counts["fused_memory_update"]
     mem_seg, counts = drive("memory segmented", "memory", {"fused": "kernel"}, 1,
-                            channel="markov", expect={"memory_stream": ROUNDS * N_LEAVES})
-    ms_launches = counts["memory_stream"]
+                            channel="markov", expect={"memory_stream_segments": ROUNDS})
+    ms_launches = counts["memory_stream_segments"]
     mem_plain, _ = drive("memory plain", "memory", {"fused": False}, 0, channel="markov",
                          expect={})
     compare("memory kernel", mem_exp, (("segmented", mem_seg, 0.0),
@@ -790,15 +843,15 @@ def main():
           f"memory: every uplink arrived in every round {mem_exp.log.participation}; "
           "the replay branch never ran")
 
-    # int8 quantized relaying: fused dequant kernel, int8 segments through
-    # row_stream (ops.dequant_row_stream admits int8 segments only), and the
-    # dequant oracle, which draws the kernel path's codec stream
+    # int8 quantized relaying: fused dequant kernel, the int8 segments
+    # through one grouped row_stream launch a round, and the dequant oracle,
+    # which draws the kernel path's codec stream
     q_opts = {"codec": "int8", "fused": "kernel"}
     q_exp, counts = drive("quantized kernel", "quantized", q_opts, 0,
                           expect={"fused_dequant_aggregate": ROUNDS})
     fdq_launches = counts["fused_dequant_aggregate"]
     q_seg, counts = drive("quantized segmented", "quantized", q_opts, 1,
-                          expect={"row_stream": ROUNDS * N_LEAVES})
+                          expect={"row_stream_segments": ROUNDS})
     q_plain, _ = drive("quantized plain", "quantized", {"codec": "int8", "fused": False}, 0,
                        expect={})
     compare("quantized kernel", q_exp, (("fused=False", q_plain, STRATEGY_PARAM_ATOL),))
@@ -914,27 +967,36 @@ def main():
                      replaces="src/repro/kernels/fused_aggregate.py:60",
                      launches=fa_launches, max_abs_err=max_err["fused_aggregate"],
                      bound_by="bytes", **fa_times))
+    # kernels 2 and 5 as the segmented paths launch them, one grouped call
+    # over the 61 segments (ms), beside the 61 per-segment launches, each
+    # timed alone and summed (per_segment_ms); library: one call on the
+    # monolithic stack, and the per-segment calls summed
     segs = [s.contiguous() for s in X.split(full_sizes, dim=1)]
-    rs_times = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for s in segs:
-        rs_times["ms"] += median_ms(lambda: fa.row_stream_cuda(w, s), flush, 30)
-        rs_times["plain_ms"] += median_ms(lambda: fa.row_stream_plain(w, s), flush, 10)
-        rs_times["library_ms"] += median_ms(lambda: torch.matmul(w, s), flush, 30)
-        rs_times["bound_ms"] += bound_ms(4 * n + 4 * n * s.shape[1] + 4 * s.shape[1],
-                                         2 * n * s.shape[1])
-    rows.append(dict(name="row_stream", route="cuda",
-                     source="src/repro_torch/kernels/csrc/fused_aggregate.cu",
-                     replaces="src/repro/kernels/fused_aggregate.py:105",
-                     launches=rs_launches, max_abs_err=max_err["row_stream"],
-                     bound_by="bytes", **rs_times))
+    rs_times = dict(
+        ms=median_ms(lambda: fa.row_stream_segments_cuda(w, segs), flush, 100),
+        per_segment_ms=sum(median_ms(lambda: fa.row_stream_cuda(w, s), flush, 30) for s in segs),
+        plain_ms=median_ms(lambda: fa.row_stream_segments_plain(w, segs), flush, 10),
+        library_ms=median_ms(lambda: torch.matmul(w, X), flush, 100),
+        library_per_segment_ms=sum(median_ms(lambda: torch.matmul(w, s), flush, 30)
+                                   for s in segs),
+        bound_ms=bound_ms(4 * n + 4 * n * d_full + 4 * d_full, 2 * n * d_full))
     # row_stream on the quantized path's int8 segments
     q8 = (X * 40).round().clamp(-127, 127).to(torch.int8)
     scale = torch.rand(n, 1, device=dev) / 40
     ws = ops.fold_dequant_scales(w, scale)
     q8_segs = [s_.contiguous() for s_ in q8.split(full_sizes, dim=1)]
-    rs8_ms = sum(median_ms(lambda: fa.row_stream_cuda(ws, s_), flush, 30) for s_ in q8_segs)
-    rs8_bound = sum(bound_ms(4 * n + n * s_.shape[1] + 4 * s_.shape[1], 2 * n * s_.shape[1])
-                    for s_ in q8_segs)
+    rs8_times = dict(
+        int8_ms=median_ms(lambda: fa.row_stream_segments_cuda(ws, q8_segs), flush, 100),
+        int8_per_segment_ms=sum(median_ms(lambda: fa.row_stream_cuda(ws, s_), flush, 30)
+                                for s_ in q8_segs),
+        int8_plain_ms=median_ms(lambda: fa.row_stream_segments_plain(ws, q8_segs), flush, 10),
+        int8_library_ms=None,
+        int8_bound_ms=bound_ms(4 * n + n * d_full + 4 * d_full, 2 * n * d_full))
+    rows.append(dict(name="row_stream", route="cuda",
+                     source="src/repro_torch/kernels/csrc/fused_aggregate.cu",
+                     replaces="src/repro/kernels/fused_aggregate.py:105",
+                     launches=rs_launches, max_abs_err=max_err["row_stream"],
+                     bound_by="bytes", **rs_times, **rs8_times))
 
     # the memory kernels: X and B read, contrib and delta written
     def mem_bytes(d_):
@@ -958,15 +1020,18 @@ def main():
                      replaces="src/repro/kernels/fused_memory.py:63",
                      launches=fmu_launches, max_abs_err=max_err["fused_memory_update"],
                      bound_by="bytes", **fmu_times))
-    ms_times = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0)
+    ms_times = dict(
+        ms=median_ms(lambda: fm.memory_stream_segments_cuda(mix, tu, segs, B), flush, 100),
+        per_segment_ms=0.0,
+        plain_ms=median_ms(lambda: fm.memory_stream_segments_plain(mix, tu, segs, B), flush, 10),
+        library_ms=None,
+        bound_ms=bound_ms(4 * n * n + 4 * n + mem_bytes(d_full), mem_ops(d_full)))
     tilde_seg_ms, off = 0.0, 0
     for s_ in segs:
         d_ = s_.shape[1]
         view = B[:, off:off + d_]
-        ms_times["ms"] += median_ms(lambda: fm.memory_stream_cuda(mix, tu, s_, view), flush, 30)
-        ms_times["plain_ms"] += median_ms(lambda: fm.memory_stream_plain(mix, tu, s_, view),
-                                          flush, 10)
-        ms_times["bound_ms"] += bound_ms(4 * n * n + 4 * n + mem_bytes(d_), mem_ops(d_))
+        ms_times["per_segment_ms"] += median_ms(lambda: fm.memory_stream_cuda(mix, tu, s_, view),
+                                                flush, 30)
         tilde_seg_ms += median_ms(lambda: torch.matmul(mix, s_), flush, 30)
         off += d_
     rows.append(dict(name="memory_stream", route="cuda",
@@ -1049,9 +1114,10 @@ def main():
 
     whats = {
         "fused_aggregate": "one launch, n=10 d=272282 f32",
-        "row_stream": "sum over the 61 segments of one round, n=10 f32",
+        "row_stream": "one launch over the 61 segments of one round, n=10 f32",
         "fused_memory_update": "one launch, n=10 d=272282 f32 stack and buffer",
-        "memory_stream": "sum over the 61 segments of one round, n=10 f32, strided buffer views",
+        "memory_stream": "one launch over the 61 segments of one round into the (n, d) "
+                         "buffer, n=10 f32",
         "fused_dequant_aggregate": "one launch, n=10 d=272282 int8",
         "block_fused_aggregate": "one launch (the collapse, then the stream launched behind "
                                  "it), n=10 as C=2 m=5, d=272282 f32",
@@ -1064,11 +1130,19 @@ def main():
         rate = (f" ({mixed_bytes[r['name']] / r['ms'] / 1e9:.3f} TB/s; library "
                 f"{mixed_bytes[r['name']] / r['library_ms'] / 1e9:.3f} TB/s)"
                 if r["name"] in mixed_bytes else "")
-        print(f"[time] {r['name']} ({whats[r['name']]}): kernel {r['ms']:.4f} ms{rate}, "
+        per_seg = (f" (61 launches, each timed alone, summed: {r['per_segment_ms']:.4f} ms)"
+                   if "per_segment_ms" in r else "")
+        print(f"[time] {r['name']} ({whats[r['name']]}): kernel {r['ms']:.4f} ms{per_seg}{rate}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"library {lib} [{card}]")
-    print(f"[time] row_stream on the quantized path's 61 int8 segments (sum): kernel "
-          f"{rs8_ms:.4f} ms, bound {rs8_bound:.4f} ms (bytes) [{card}]")
+    print(f"[time] row_stream's library_ms is torch.matmul(w, X) on the monolithic stack; "
+          f"torch.matmul(w, seg) over the 61 segments, summed: "
+          f"{rs_times['library_per_segment_ms']:.4f} ms [{card}]")
+    print(f"[time] row_stream on the quantized path's 61 int8 segments: kernel "
+          f"{rs8_times['int8_ms']:.4f} ms one launch (61 launches, each timed alone, summed: "
+          f"{rs8_times['int8_per_segment_ms']:.4f} ms), bound {rs8_times['int8_bound_ms']:.4f} ms "
+          f"(bytes), plain {rs8_times['int8_plain_ms']:.4f} ms, library null: no PyTorch call "
+          f"takes the int8 segments [{card}]")
     print(f"[time] memory kernels' library_ms is {no_library}; yardstick of tilde alone, "
           f"torch.matmul(mix, X): {tilde_ms:.4f} ms one launch, {tilde_seg_ms:.4f} ms summed "
           f"over the 61 segments [{card}]")

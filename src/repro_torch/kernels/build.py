@@ -35,15 +35,17 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # (A, tau_up, tau_dd, x, out, n, d, block_d, dtype, inv_n, stream)
     "repro_fused_aggregate": (_P, _P, _P, _P, _P, _I, _I64, _I64, _I, _F, _P),
-    # (w, x, out, n, d, block_d, dtype, stream)
-    "repro_row_stream": (_P, _P, _P, _I, _I64, _I64, _I, _P),
+    # (w, table of (x, d) rows, segments, out, n, block_d, dtype, stream)
+    "repro_row_stream": (_P, ctypes.POINTER(_I64), _I, _P, _I, _I64, _I, _P),
     # (A, tau_up, tau_dd, scale, q, out, n, d, block_d, inv_n, stream)
     "repro_fused_dequant_aggregate": (_P, _P, _P, _P, _P, _P, _I, _I64, _I64, _F, _P),
     # (A, tau_up, tau_dd, x, ldx, buf, ldb, delta, n, d, block_d, dtype, inv_n, stream)
     "repro_fused_memory_update": (_P, _P, _P, _P, _I64, _P, _I64, _P, _I, _I64, _I64, _I,
                                   _F, _P),
-    # (mix, tau_up, x, ldx, buf, ldb, delta, n, d, block_d, dtype, inv_n, stream)
-    "repro_memory_stream": (_P, _P, _P, _I64, _P, _I64, _P, _I, _I64, _I64, _I, _F, _P),
+    # (mix, tau_up, table of (x, ldx, d) rows, segments, buf, ldb, delta, n, block_d,
+    # dtype, inv_n, stream)
+    "repro_memory_stream": (_P, _P, ctypes.POINTER(_I64), _I, _P, _I64, _P, _I, _I64, _I, _F,
+                            _P),
     # (A, tau_up, tau_b, x, w scratch, out, C, m, d, block_d, dtype, inv_n, stream)
     "repro_block_fused_aggregate": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I64, _I, _F, _P),
     # (w, x, out, n, d, block_d, dtype, stream)

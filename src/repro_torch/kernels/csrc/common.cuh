@@ -1,8 +1,8 @@
 // Helpers shared by the port's streaming kernels (fused_aggregate.cu,
 // fused_memory.cu, relay_block.cu): element widening, 16-byte column
-// loads, the alignment test that picks the vector path, the column-block
-// grid of the memory kernels, and the weighted row stream of the
-// aggregation kernels.
+// loads, the alignment test that picks the vector path, the weighted row
+// stream of the aggregation kernels, and the segment table of the kernels
+// that run one launch over a round's segment list.
 //
 // The stream is the row reduction out = w @ X of five TPU kernels: kernels
 // 1, 2 and 6 (src/repro/kernels/fused_aggregate.py fused_aggregate_pallas
@@ -54,14 +54,9 @@ bool rows_aligned(const void* x, int64_t d) {
   return reinterpret_cast<uintptr_t>(x) % 16 == 0 && (d * static_cast<int64_t>(sizeof(T))) % 16 == 0;
 }
 
-dim3 grid_for(int64_t d, int64_t block_d) {
-  return dim3(static_cast<unsigned>((d + block_d - 1) / block_d));
-}
-
 // -- the weighted row stream of kernels 1, 2, 6, 8 and 9 ----------------------
 //
-// out[c] = sum_j w[j] * x[j, c], j in order, over this block's columns
-// [blockIdx.x * cols, min((blockIdx.x + 1) * cols, d)).
+// out[c] = sum_j w[j] * x[j, c], j in order, over one block's columns.
 //
 // The stream is bound by bytes (n*d*elt read once, 4*d written), so what
 // matters is how many bytes the card has in flight and that no block waits
@@ -135,12 +130,31 @@ __device__ __forceinline__ void add_batch(float (&acc)[V],
   }
 }
 
+// V consecutive f32 outputs at p: 16-byte stores where p is 16-byte
+// aligned, else one element at a time (a segment's columns of a round's
+// (d,) delta start wherever the segments before it end).
+template <int V>
+__device__ __forceinline__ void store_cols(float* __restrict__ p, const float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+      float4* o = reinterpret_cast<float4*>(p);
+#pragma unroll
+      for (int q = 0; q < V / 4; ++q)
+        o[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) p[k] = v[k];
+}
+
+// Columns [block * cols, min((block + 1) * cols, d)) of out = w @ x.
 template <typename T, int V, typename Ready>
 __device__ __forceinline__ void weighted_rows(const float* w, const T* __restrict__ x,
                                               float* __restrict__ out, int n, int64_t d,
-                                              int64_t cols, Ready ready) {
+                                              int64_t cols, int64_t block, Ready ready) {
   using Word = typename RowWord<T, V>::type;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cols;
+  const int64_t c0 = block * cols;
   const int64_t c1 = c0 + cols < d ? c0 + cols : d;
   const int64_t step = static_cast<int64_t>(blockDim.x) * V;
   int64_t c = c0 + static_cast<int64_t>(threadIdx.x) * V;
@@ -155,15 +169,7 @@ __device__ __forceinline__ void weighted_rows(const float* w, const T* __restric
       if (!first || j0 > 0) load_batch<T, V>(rows, x, c, j0, n, d);
       add_batch<T, V>(acc, rows, w, j0, n);
     }
-    if constexpr (V % 4 == 0) {
-      float4* o = reinterpret_cast<float4*>(out + c);
-#pragma unroll
-      for (int q = 0; q < V / 4; ++q)
-        o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < V; ++k) out[c + k] = acc[k];
-    }
+    store_cols<V>(out + c, acc);
   }
 }
 
@@ -195,6 +201,47 @@ inline int64_t stream_cols(int64_t d, int64_t block_d, int V, int64_t resident) 
 
 inline dim3 stream_grid(int64_t d, int64_t cols) {
   return dim3(static_cast<unsigned>((d + cols - 1) / cols));
+}
+
+// -- one launch over a round's segment list (kernels 2, 4 and 5) --------------
+//
+// The segmented paths stream a round's leaves (61 of them for cifar_cnn_full,
+// 10 to 36,864 columns wide) as separate (n, d_i) tensors.  One launch covers
+// them all: the launcher fills a table of the segments, passed by value as a
+// __grid_constant__ kernel parameter (no copy to the device, no host sync),
+// gives every segment ceil(d_i / cols) blocks of one column width `cols`
+// (so blocks follow the columns), and each block finds its segment by a
+// binary search of the segments' first blocks.  kMaxSegments entries keep
+// the table and the kernels' other arguments inside the classic 4 KB of
+// kernel parameters (no large-parameter support needed); the Python
+// wrappers raise past it.
+constexpr int kMaxSegments = 96;
+
+// The segment (index into tab.seg) of this block: the last whose first block
+// is at most blockIdx.x.  Every segment has at least one block.
+template <typename Table>
+__device__ __forceinline__ int find_segment(const Table& tab) {
+  const int b = static_cast<int>(blockIdx.x);
+  int lo = 0, hi = tab.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tab.seg[mid].first_block <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Each segment's first block, for blocks of `cols` columns (a table whose
+// entries carry d and first_block); returns the grid's size.
+template <typename Table>
+int64_t place_segments(Table& tab, int64_t cols) {
+  tab.cols = cols;
+  int64_t blocks = 0;
+  for (int s = 0; s < tab.count; ++s) {
+    tab.seg[s].first_block = static_cast<int32_t>(blocks);
+    blocks += (tab.seg[s].d + cols - 1) / cols;
+  }
+  return blocks;
 }
 
 }  // namespace

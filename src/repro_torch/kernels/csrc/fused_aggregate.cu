@@ -4,7 +4,7 @@
 //   fused_aggregate_pallas (pallas_call at line 79)  -> fused_aggregate_kernel
 //     out = (1/n) tau_up @ ((A * tau_dd^T) @ X)
 //   row_stream_pallas      (pallas_call at line 122) -> row_stream_kernel
-//     out = w @ X
+//     out = w @ X, over a list of segments in one launch
 // and of src/repro/kernels/fused_dequant.py:
 //   fused_dequant_aggregate_pallas (pallas_call at line 90) -> fused_dequant_kernel
 //     out = ((1/n) tau_up @ (A * tau_dd^T) * scale^T) @ Q
@@ -37,6 +37,18 @@
 //   block_d columns a block).  row_stream reads its given w through the
 //   cache.
 // * No host-side padding: each block masks its ragged last columns.
+// * row_stream_kernel takes the round's segment list (common.cuh's segment
+//   table): the segmented colrel and quantized paths make one launch a
+//   round over their 61 leaves where they made 61, each ~6 us of launch and
+//   latency for at most 1.5 MB.  Each block streams its segment's columns
+//   with weighted_rows into the segment's columns of the round's (d,)
+//   delta; a segment takes the 16-byte path when its rows are aligned (the
+//   10-wide fc bias takes the scalar one), and writes its outputs one
+//   element at a time where its first column of the delta is not 16-byte
+//   aligned (every leaf after that bias).  Each output column depends on
+//   its own input column only, so the grouped launch gives the per-segment
+//   and the monolithic results to the bit.  A single segment is a table of
+//   one entry.
 //
 // Arithmetic: f32 accumulation in row order, products and sums rounded
 // separately (__fmul_rn / __fadd_rn, no FMA contraction), w scaled by a
@@ -76,7 +88,7 @@ fused_aggregate_kernel(const float* __restrict__ A, const float* __restrict__ ta
                        float* __restrict__ out, int n, int64_t d, int64_t cols,
                        float inv_n) {
   extern __shared__ float w[];
-  weighted_rows<T, V>(w, x, out, n, d, cols, [&] {
+  weighted_rows<T, V>(w, x, out, n, d, cols, blockIdx.x, [&] {
     collapse_row(A, tau_up, tau_dd, nullptr, w, n, inv_n);
     __syncthreads();
   });
@@ -92,18 +104,40 @@ fused_dequant_kernel(const float* __restrict__ A, const float* __restrict__ tau_
                      const int8_t* __restrict__ q, float* __restrict__ out, int n,
                      int64_t d, int64_t cols, float inv_n) {
   extern __shared__ float w[];
-  weighted_rows<int8_t, V>(w, q, out, n, d, cols, [&] {
+  weighted_rows<int8_t, V>(w, q, out, n, d, cols, blockIdx.x, [&] {
     collapse_row(A, tau_up, tau_dd, scale, w, n, inv_n);
     __syncthreads();
   });
 }
 
+// One segment of the round: its (n, d) stack, rows contiguous, and its first
+// column in out.
+struct RowSegment {
+  const void* x;
+  int64_t d;
+  int64_t off;
+  int32_t first_block;
+  int32_t vec;  // rows 16-byte aligned: the 16-byte path
+};
+
+struct RowSegments {
+  int32_t count;
+  int64_t cols;
+  RowSegment seg[kMaxSegments];
+};
+
 // The weight row is given: it is read through the cache, not staged.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-row_stream_kernel(const float* __restrict__ w, const T* __restrict__ x,
-                  float* __restrict__ out, int n, int64_t d, int64_t cols) {
-  weighted_rows<T, V>(w, x, out, n, d, cols, [] {});
+row_stream_kernel(const float* __restrict__ w, float* __restrict__ out, int n,
+                  const __grid_constant__ RowSegments tab) {
+  const RowSegment& s = tab.seg[find_segment(tab)];
+  const T* x = static_cast<const T*>(s.x);
+  const int64_t block = static_cast<int64_t>(blockIdx.x) - s.first_block;
+  if (s.vec)
+    weighted_rows<T, V>(w, x, out + s.off, n, s.d, tab.cols, block, [] {});
+  else
+    weighted_rows<T, 1>(w, x, out + s.off, n, s.d, tab.cols, block, [] {});
 }
 
 template <typename T>
@@ -127,22 +161,33 @@ cudaError_t launch_fused(const float* A, const float* tau_up, const float* tau_d
   return cudaGetLastError();
 }
 
+// table: count rows of (x pointer, d); the segments' outputs follow each
+// other in out.
 template <typename T>
-cudaError_t launch_row_stream(const float* w, const void* x, float* out, int n, int64_t d,
-                              int64_t block_d, cudaStream_t stream) {
+cudaError_t launch_row_stream(const float* w, const int64_t* table, int count, float* out,
+                              int n, int64_t block_d, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  const T* xt = static_cast<const T*>(x);
-  if (rows_aligned<T>(x, d)) {
-    const int64_t cols =
-        stream_cols(d, block_d, V, resident_blocks((const void*)row_stream_kernel<T, V>, 0));
-    row_stream_kernel<T, V><<<stream_grid(d, cols), kThreads, 0, stream>>>(w, xt, out, n, d,
-                                                                           cols);
-  } else {
-    const int64_t cols =
-        stream_cols(d, block_d, 1, resident_blocks((const void*)row_stream_kernel<T, 1>, 0));
-    row_stream_kernel<T, 1><<<stream_grid(d, cols), kThreads, 0, stream>>>(w, xt, out, n, d,
-                                                                           cols);
+  if (count < 1 || count > kMaxSegments) return cudaErrorInvalidValue;
+  RowSegments tab{};
+  tab.count = count;
+  int64_t total = 0;
+  bool any_vec = false;
+  for (int s = 0; s < count; ++s) {
+    RowSegment& e = tab.seg[s];
+    e.x = reinterpret_cast<const void*>(table[2 * s]);
+    e.d = table[2 * s + 1];
+    e.off = total;
+    e.vec = rows_aligned<T>(e.x, e.d);
+    any_vec = any_vec || e.vec;
+    total += e.d;
   }
+  // the stream's width over the total columns, for a card that holds
+  // `resident` blocks less one partial block a segment
+  const int64_t resident = resident_blocks((const void*)row_stream_kernel<T, V>, 0);
+  const int64_t blocks = place_segments(
+      tab, stream_cols(total, block_d, any_vec ? V : 1, resident > count ? resident - count
+                                                                          : resident));
+  row_stream_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(w, out, n, tab);
   return cudaGetLastError();
 }
 
@@ -180,13 +225,13 @@ extern "C" int repro_fused_aggregate(const float* A, const float* tau_up, const 
   }
 }
 
-extern "C" int repro_row_stream(const float* w, const void* x, float* out, int n, int64_t d,
-                                int64_t block_d, int dtype, void* stream) {
+extern "C" int repro_row_stream(const float* w, const int64_t* table, int count, float* out,
+                                int n, int64_t block_d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch_row_stream<float>(w, x, out, n, d, block_d, s);
-    case kBF16: return launch_row_stream<__nv_bfloat16>(w, x, out, n, d, block_d, s);
-    case kI8: return launch_row_stream<int8_t>(w, x, out, n, d, block_d, s);
+    case kF32: return launch_row_stream<float>(w, table, count, out, n, block_d, s);
+    case kBF16: return launch_row_stream<__nv_bfloat16>(w, table, count, out, n, block_d, s);
+    case kI8: return launch_row_stream<int8_t>(w, table, count, out, n, block_d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

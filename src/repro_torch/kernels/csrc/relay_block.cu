@@ -114,7 +114,7 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 block_stream_kernel(const float* __restrict__ w, const T* __restrict__ x,
                     float* __restrict__ out, int n, int64_t d, int64_t cols) {
-  weighted_rows<T, V>(w, x, out, n, d, cols,
+  weighted_rows<T, V>(w, x, out, n, d, cols, blockIdx.x,
                       [] { asm volatile("griddepcontrol.wait;" ::: "memory"); });
 }
 

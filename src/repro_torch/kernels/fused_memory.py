@@ -18,6 +18,10 @@ Replaces ``repro/kernels/fused_memory.py``:
   ``A * tau_dd^T`` that the caller computes once a round; the buffer
   segment is a column slice of the carried ``(n, d)`` buffer (row stride
   d), so no copy of it is made.
+* :func:`memory_stream_segments_cuda` — the same over a round's whole
+  segment list in one launch: the segments tile the carried buffer's
+  columns in order, and one ``(d,)`` delta comes back.  The segmented
+  memory path makes one launch a round where it made one per leaf.
 
 **The buffer is updated in place.**  Every function here writes
 ``contrib`` into the buffer it was given and returns ``(delta, buffer)``
@@ -30,28 +34,34 @@ header).  The plain versions run the kernels' arithmetic in the kernels'
 order — tilde summed over j in order, each product and sum rounded on its
 own, delta summed over i in order and scaled by ``1/n`` — so kernel and
 plain version agree to the bit, and a per-segment pass gives exactly the
-columns of the monolithic one.
+columns of the monolithic one; the grouped plain version is the
+per-segment loop.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_aggregate import (
     _check_block,
+    _check_segments,
     _operand,
     _raise_on,
+    _same_stack,
+    _table,
     mixing_mask,
 )
 
 __all__ = [
     "fused_memory_update_plain",
     "memory_stream_plain",
+    "memory_stream_segments_plain",
     "fused_memory_update_cuda",
     "memory_stream_cuda",
+    "memory_stream_segments_cuda",
 ]
 
 # element type codes of csrc/fused_memory.cu
@@ -88,6 +98,26 @@ def memory_stream_plain(mix: torch.Tensor, tau_up: torch.Tensor, segment: torch.
     """Plain version of :func:`memory_stream_cuda`: ``(delta_seg (d_i,) f32,
     buf_seg)`` with ``buf_seg`` overwritten by the segment's ``contrib``."""
     return _memory_plain(mix.float(), tau_up, segment, buf_seg)
+
+
+def _check_fit(segments, buf: torch.Tensor, what: str) -> None:
+    d = sum(s.shape[1] for s in segments)
+    if buf.ndim != 2 or tuple(buf.shape) != (segments[0].shape[0], d):
+        raise ValueError(f"{what}: the segments tile an (n, d) = ({segments[0].shape[0]}, {d}) "
+                         f"buffer, got one of shape {tuple(buf.shape)}")
+
+
+def memory_stream_segments_plain(mix: torch.Tensor, tau_up: torch.Tensor,
+                                 segments: Sequence[torch.Tensor], buf: torch.Tensor):
+    """Plain version of :func:`memory_stream_segments_cuda`: the per-segment
+    passes over the buffer's columns in order; ``(delta (d,) f32, buf)``."""
+    _check_fit(segments, buf, "memory_stream_segments")
+    deltas, off = [], 0
+    for seg in segments:
+        d = seg.shape[1]
+        deltas.append(memory_stream_plain(mix, tau_up, seg, buf[:, off:off + d])[0])
+        off += d
+    return torch.cat(deltas), buf
 
 
 # -- the CUDA wrappers -------------------------------------------------------
@@ -144,6 +174,28 @@ def fused_memory_update_cuda(A: torch.Tensor, tau_up: torch.Tensor, tau_dd: torc
 fused_memory_update_cuda.launches = 0
 
 
+def _launch_stream(mix, tau_up, segments, buf, block_d: int, what: str) -> torch.Tensor:
+    _check_segments(segments, what)
+    for seg in segments:
+        _same_stack(seg, segments[0], what)
+    _check_fit(segments, buf, what)
+    for seg in segments:
+        _check_operands(seg, buf[:, :seg.shape[1]], block_d, what)
+    n, dev = buf.shape[0], buf.device
+    m = _operand(mix, (n, n), dev, "mix")
+    tu = _operand(tau_up, (n,), dev, "tau_up")
+    delta = torch.empty(buf.shape[1], dtype=torch.float32, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.repro_memory_stream(
+            m.data_ptr(), tu.data_ptr(),
+            _table((s.data_ptr(), s.stride(0), s.shape[1]) for s in segments), len(segments),
+            buf.data_ptr(), buf.stride(0), delta.data_ptr(), n, block_d,
+            _DTYPE_CODES[segments[0].dtype], 1.0 / n, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, what)
+    return delta
+
+
 def memory_stream_cuda(mix: torch.Tensor, tau_up: torch.Tensor, segment: torch.Tensor,
                        buf_seg: torch.Tensor, *, block_d: int = 2048):
     """One segment of the memory round against the realized mask ``mix``
@@ -152,19 +204,24 @@ def memory_stream_cuda(mix: torch.Tensor, tau_up: torch.Tensor, segment: torch.T
     any row stride (a column slice of the carried buffer).  Returns
     ``(delta_seg (d_i,) f32, buf_seg)`` with ``buf_seg`` overwritten by the
     segment's ``contrib``."""
-    n, d, dev = _check_operands(segment, buf_seg, block_d, "memory_stream")
-    m = _operand(mix, (n, n), dev, "mix")
-    tu = _operand(tau_up, (n,), dev, "tau_up")
-    delta = torch.empty(d, dtype=torch.float32, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.repro_memory_stream(
-            m.data_ptr(), tu.data_ptr(), segment.data_ptr(), segment.stride(0),
-            buf_seg.data_ptr(), buf_seg.stride(0), delta.data_ptr(), n, d, block_d,
-            _DTYPE_CODES[segment.dtype], 1.0 / n, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, lib, "memory_stream")
+    delta = _launch_stream(mix, tau_up, [segment], buf_seg, block_d, "memory_stream")
     memory_stream_cuda.launches += 1
     return delta, buf_seg
 
 
 memory_stream_cuda.launches = 0
+
+
+def memory_stream_segments_cuda(mix: torch.Tensor, tau_up: torch.Tensor,
+                                segments: Sequence[torch.Tensor], buf: torch.Tensor, *,
+                                block_d: int = 2048):
+    """A round's memory update over its segment list in one launch: the
+    (n, d_i) f32 or bf16 CUDA segments (one dtype, one n, rows contiguous)
+    tile the columns of the (n, d) f32 replay buffer in order.  Returns
+    ``(delta (d,) f32, buf)`` with ``buf`` overwritten by ``contrib``."""
+    delta = _launch_stream(mix, tau_up, list(segments), buf, block_d, "memory_stream_segments")
+    memory_stream_segments_cuda.launches += 1
+    return delta, buf
+
+
+memory_stream_segments_cuda.launches = 0

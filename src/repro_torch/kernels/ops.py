@@ -8,12 +8,14 @@ fallback from one to the other.
 Segment streaming: at large d the ``(n, d)`` stack itself is the memory
 bottleneck, so the per-round operand — :func:`collapsed_weight_row`, its
 scale-folded form :func:`fold_dequant_scales`, or the realized mask
-:func:`mixing_mask` — is computed once per round and each per-leaf
-``(n, d_i)`` segment streams through :func:`row_stream`,
+:func:`mixing_mask` — is computed once per round and the per-leaf
+``(n, d_i)`` segments stream through :func:`row_stream_segments` (f32,
+bf16 or int8) or :func:`memory_stream_segments`, one launch over the
+round's segment list, or one at a time through :func:`row_stream`,
 :func:`dequant_row_stream` or :func:`memory_stream`.  Every output column
-is a function of its own input column only, and both paths run the same
-arithmetic, so per-segment outputs equal the matching columns of the
-monolithic pass bitwise.
+is a function of its own input column only, and all paths run the same
+arithmetic, so grouped, per-segment and monolithic outputs agree
+bitwise.
 
 The memory functions update the replay buffer they are given in place
 (see :mod:`repro_torch.kernels.fused_memory`).
@@ -50,8 +52,10 @@ __all__ = [
     "fold_dequant_scales",
     "fused_aggregate",
     "row_stream",
+    "row_stream_segments",
     "fused_memory_update",
     "memory_stream",
+    "memory_stream_segments",
     "fused_dequant_aggregate",
     "dequant_row_stream",
     "relay_mix",
@@ -86,6 +90,15 @@ def row_stream(w: torch.Tensor, segment: torch.Tensor, *,
     return fa.row_stream_cuda(w, segment, block_d=block_d)
 
 
+def row_stream_segments(w: torch.Tensor, segments, *, block_d: int = 2048) -> torch.Tensor:
+    """A round's PS-delta columns ``w @ segment_i`` over its list of (n, d_i)
+    segments (one dtype: f32, bf16 or int8), one launch on the card:
+    (sum d_i,) f32, segment after segment."""
+    if _on_cpu(segments[0]):
+        return fa.row_stream_segments_plain(w, segments)
+    return fa.row_stream_segments_cuda(w, segments, block_d=block_d)
+
+
 def fused_memory_update(A: torch.Tensor, tau_up: torch.Tensor, tau_dd: torch.Tensor,
                         updates: torch.Tensor, buffer: torch.Tensor, *,
                         block_d: int = 2048):
@@ -105,6 +118,17 @@ def memory_stream(mix: torch.Tensor, tau_up: torch.Tensor, segment: torch.Tensor
     if _on_cpu(segment):
         return fm.memory_stream_plain(mix, tau_up, segment, buf_seg)
     return fm.memory_stream_cuda(mix, tau_up, segment, buf_seg, block_d=block_d)
+
+
+def memory_stream_segments(mix: torch.Tensor, tau_up: torch.Tensor, segments,
+                           buf: torch.Tensor, *, block_d: int = 2048):
+    """A round's memory update over its list of (n, d_i) segments, which
+    tile the carried (n, d) buffer's columns in order, one launch on the
+    card: returns ``(delta (d,) f32, buf)`` with ``buf`` overwritten by
+    ``contrib``."""
+    if _on_cpu(segments[0]):
+        return fm.memory_stream_segments_plain(mix, tau_up, segments, buf)
+    return fm.memory_stream_segments_cuda(mix, tau_up, segments, buf, block_d=block_d)
 
 
 def fused_dequant_aggregate(A: torch.Tensor, tau_up: torch.Tensor, tau_dd: torch.Tensor,

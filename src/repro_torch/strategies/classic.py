@@ -9,8 +9,9 @@ ColRel's ``fused`` option picks how the same delta is computed:
   effective weights ``w_j = sum_i tau_i tau_ji alpha_ij``, per leaf.
 * ``fused="kernel"`` — flatten once and stream the ``(n, d)`` stack
   through the fused aggregation kernel in one pass; with
-  ``ctx.use_segments(d)`` each per-leaf ``(n, d_i)`` segment streams
-  through the row kernel against one collapsed weight row instead.
+  ``ctx.use_segments(d)`` the per-leaf ``(n, d_i)`` segments stream
+  through one launch of the row kernel against one collapsed weight row
+  instead.
 """
 
 from __future__ import annotations
@@ -55,14 +56,13 @@ class ColRelStrategy(AggregationStrategy):
         if self.fused == "kernel":
             spec = flatten.flat_spec(deltas, stacked=True)
             if ctx.use_segments(spec.d):
-                # segment streaming: collapse the weight row once, stream
-                # each (n, d_i) leaf segment through its own kernel pass and
-                # reshape each partial delta straight to its leaf
+                # segment streaming: collapse the weight row once and stream
+                # the (n, d_i) leaf segments through one kernel launch; the
+                # leaves are views of its (d,) delta
                 w = kernel_ops.collapsed_weight_row(A, tau_up, tau_dd)
                 segments = flatten.ravel_stacked_segments(deltas, dtype=ctx.flat_dtype)
-                leaves = [kernel_ops.row_stream(w, seg, block_d=ctx.fused_block_d).reshape(shape)
-                          for seg, shape in zip(segments, spec.shapes)]
-                return tree.unflatten(spec.treedef, leaves), state
+                gflat = kernel_ops.row_stream_segments(w, segments, block_d=ctx.fused_block_d)
+                return flatten.unravel(spec, gflat, dtype=torch.float32), state
             stack = flatten.ravel_stacked(deltas, dtype=ctx.flat_dtype)
             gflat = kernel_ops.fused_aggregate(A, tau_up, tau_dd, stack,
                                                block_d=ctx.fused_block_d)

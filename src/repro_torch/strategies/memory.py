@@ -20,14 +20,14 @@ select, accumulate as separate PyTorch ops (the oracle) on the flattened
 stack.  ``fused="kernel"`` runs the recursion through one pass of
 :func:`repro_torch.kernels.ops.fused_memory_update`, which keeps
 ``tilde`` out of device memory; with ``ctx.use_segments(d)`` the realized
-mask is built once a round and each per-leaf ``(n, d_i)`` segment goes
-through :func:`repro_torch.kernels.ops.memory_stream`, so the monolithic
-stack never exists.
+mask is built once a round and the per-leaf ``(n, d_i)`` segments go
+through one launch of :func:`repro_torch.kernels.ops.memory_stream_segments`,
+so the monolithic stack never exists.
 
 **The carried buffer is updated in place on the kernel paths.**  Where
 the reference writes each contrib segment back into the donated buffer
 with ``dynamic_update_slice``, the kernels write ``contrib`` straight into
-the buffer (a strided column view per segment) and the strategy returns
+the buffer (each segment into its columns) and the strategy returns
 the same tensor as the next state.  A caller that keeps an earlier state
 clones it first.
 """
@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import tree
 from repro_torch.core import flatten
 from repro_torch.core import relay as relay_ops
 from repro_torch.kernels import ops as kernel_ops
@@ -78,16 +77,13 @@ class MemoryStrategy(AggregationStrategy):
             return super().aggregate_tree(deltas, tau_up, tau_dd, A, state, ctx)
         spec = flatten.flat_spec(deltas, stacked=True)
         if ctx.use_segments(spec.d):
-            # the realized mask once, then one pass per leaf segment that
-            # writes its contrib into the buffer's columns in place
+            # the realized mask once, then one launch over the leaf segments
+            # that writes their contrib into the buffer's columns in place
             mix = kernel_ops.mixing_mask(A, tau_dd)
             segments = flatten.ravel_stacked_segments(deltas, dtype=torch.float32)
-            leaves = []
-            for seg, off, size, shape in zip(segments, spec.offsets, spec.sizes, spec.shapes):
-                dseg, _ = kernel_ops.memory_stream(mix, tau_up, seg, state[:, off:off + size],
-                                                   block_d=ctx.fused_block_d)
-                leaves.append(dseg.reshape(shape))
-            return tree.unflatten(spec.treedef, leaves), state
+            gflat, state = kernel_ops.memory_stream_segments(mix, tau_up, segments, state,
+                                                             block_d=ctx.fused_block_d)
+            return flatten.unravel(spec, gflat, dtype=torch.float32), state
         stack = flatten.ravel_stacked(deltas, dtype=torch.float32)
         gflat, state = kernel_ops.fused_memory_update(A, tau_up, tau_dd, stack, state,
                                                       block_d=ctx.fused_block_d)

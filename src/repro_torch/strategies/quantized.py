@@ -25,8 +25,8 @@ streams the int8 affine wire form through
 :func:`repro_torch.kernels.ops.fused_dequant_aggregate` with the scales
 folded into the collapsed colrel weight row, so no f32 stack exists;
 with ``ctx.use_segments(d)`` each leaf is quantized against one
-row-global scale and its int8 segment goes through
-:func:`repro_torch.kernels.ops.dequant_row_stream`.  Both ``fused=False``
+row-global scale and the int8 segments go through one launch of
+:func:`repro_torch.kernels.ops.row_stream_segments`.  Both ``fused=False``
 and the monolithic kernel path encode the same raveled stack from the
 same state, so they draw the same noise; the segment path draws another
 realization of the same law.
@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import tree, wire
+from repro_torch import wire
 from repro_torch.core import flatten
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.strategies import registry
@@ -109,9 +109,9 @@ class QuantizedStrategy(AggregationStrategy):
                 flatten.ravel_stacked_segments(deltas, dtype=torch.float32), codec_state)
             w = kernel_ops.collapsed_weight_row(A, tau_up, tau_dd)
             ws = kernel_ops.fold_dequant_scales(w, scale / self._gain(spec.d))
-            leaves = [kernel_ops.dequant_row_stream(ws, q, block_d=ctx.fused_block_d).reshape(shape)
-                      for q, shape in zip(qs, spec.shapes)]
-            return tree.unflatten(spec.treedef, leaves), (codec_state, inner_state)
+            gflat = kernel_ops.row_stream_segments(ws, qs, block_d=ctx.fused_block_d)
+            return (flatten.unravel(spec, gflat, dtype=torch.float32),
+                    (codec_state, inner_state))
         # flatten once, encode, and stream the int8 payload through one pass
         # with the scales (and the gain) folded into the collapsed row
         stack = flatten.ravel_stacked(deltas, dtype=torch.float32)

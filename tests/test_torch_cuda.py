@@ -5,7 +5,10 @@ there with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance atol 1e-5 + rtol 1e-5 (f32 accumulation, and bf16/int8 widened
 exactly to f32).  The kernels run the plain versions' arithmetic in the
 same order, so in practice they agree to the bit; segmented memory runs
-are held to the monolithic kernel at 0.  The clustered kernels and the
+are held to the monolithic kernel at 0.  The grouped kernels (one launch
+over a round's segment list, kernels 2 and 5) are held bitwise to their
+plain versions, to the per-segment kernels and to the monolithic kernels
+(kernel 1 or 6 for kernel 2, kernel 4 for kernel 5).  The clustered kernels and the
 dense relay mix are held to their plain versions, to the dense kernels at
 C = 1 and segments to the monolithic pass, all bitwise.  Causal flash
 attention is held to its plain version (the dense softmax) at atol = rtol
@@ -19,6 +22,7 @@ both compute in f32 and sum the products in another order.
 import pytest
 import torch
 
+from _torch_segments import SEGMENT_WIDTHS
 from repro_torch.kernels import flash_attention as fl
 from repro_torch.kernels import fused_aggregate as fa
 from repro_torch.kernels import fused_dequant as fdq
@@ -178,6 +182,109 @@ def test_fused_dequant_kernel_matches_plain(dev, n, d):
     cuts = sorted({0, min(d, 10), d})
     parts = [ops.dequant_row_stream(ws, q[:, a:b].contiguous()) for a, b in zip(cuts, cuts[1:])]
     assert torch.equal(torch.cat(parts), got)
+
+
+# -- one launch over a round's segment list (kernels 2 and 5) ------------------
+
+@pytest.mark.parametrize("n", [1, 4, 10, 33, 109])
+@pytest.mark.parametrize("widths", sorted(SEGMENT_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_row_stream_segments_kernel_matches_plain_bitwise(dev, n, widths, dtype):
+    widths = SEGMENT_WIDTHS[widths]
+    A, tau_up, tau_dd, X = _round(n, sum(widths), dtype, dev, seed=7 * n + len(widths))
+    w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+    if dtype == torch.int8:
+        scale = torch.full((n, 1), 1 / 40, device=dev)
+        w = ops.fold_dequant_scales(w, scale)
+        mono = fdq.fused_dequant_aggregate_cuda(A, tau_up, tau_dd, X, scale)
+    else:
+        mono = fa.fused_aggregate_cuda(A, tau_up, tau_dd, X)
+    segments = [s.contiguous() for s in X.split(list(widths), dim=1)]
+    before = fa.row_stream_segments_cuda.launches
+    got = fa.row_stream_segments_cuda(w, segments)
+    torch.cuda.synchronize()
+    assert fa.row_stream_segments_cuda.launches == before + 1
+    assert got.shape == (sum(widths),) and got.dtype == torch.float32
+    assert torch.equal(got, fa.row_stream_segments_plain(w, segments))
+    assert torch.equal(got, torch.cat([fa.row_stream_cuda(w, s) for s in segments]))
+    assert torch.equal(got, mono)
+
+
+@pytest.mark.parametrize("n", [1, 4, 10, 33, 109])
+@pytest.mark.parametrize("widths", sorted(SEGMENT_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("views", [False, True], ids=["contiguous", "column_views"])
+def test_memory_stream_segments_kernel_matches_plain_bitwise(dev, n, widths, dtype, views):
+    """Segments as their own tensors (as the strategy ravels them) or as
+    column views of one stack (row stride d); the grouped launch writes the
+    buffer it was given."""
+    widths = SEGMENT_WIDTHS[widths]
+    d = sum(widths)
+    A, tau_up, tau_dd, X = _round(n, d, dtype, dev, seed=11 * n + len(widths))
+    B = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).to(dev)
+    mix = ops.mixing_mask(A, tau_dd)
+    segments = [s if views else s.contiguous() for s in X.split(list(widths), dim=1)]
+    buf, plain_buf, seg_buf, mono_buf = (B.clone() for _ in range(4))
+    before = fm.memory_stream_segments_cuda.launches
+    got, out = fm.memory_stream_segments_cuda(mix, tau_up, segments, buf)
+    torch.cuda.synchronize()
+    assert fm.memory_stream_segments_cuda.launches == before + 1
+    assert out is buf and got.shape == (d,) and got.dtype == torch.float32
+    want, _ = fm.memory_stream_segments_plain(mix, tau_up, segments, plain_buf)
+    assert torch.equal(got, want) and torch.equal(buf, plain_buf)
+    parts, off = [], 0
+    for s in segments:
+        parts.append(fm.memory_stream_cuda(mix, tau_up, s, seg_buf[:, off:off + s.shape[1]])[0])
+        off += s.shape[1]
+    assert torch.equal(got, torch.cat(parts)) and torch.equal(buf, seg_buf)
+    mono, _ = fm.fused_memory_update_cuda(A, tau_up, tau_dd, X, mono_buf)
+    assert torch.equal(got, mono) and torch.equal(buf, mono_buf)
+
+
+def test_grouped_kernels_take_a_full_segment_table(dev):
+    """MAX_SEGMENTS segments in one launch, 16-byte and scalar ones mixed;
+    one more is refused before any launch."""
+    count = fa.MAX_SEGMENTS
+    widths = [1 + (37 * i) % 300 for i in range(count)]
+    A, tau_up, tau_dd, X = _round(10, sum(widths), torch.float32, dev, seed=3)
+    w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+    mix = ops.mixing_mask(A, tau_dd)
+    segments = [s.contiguous() for s in X.split(widths, dim=1)]
+    assert torch.equal(fa.row_stream_segments_cuda(w, segments),
+                       fa.row_stream_segments_plain(w, segments))
+    B = torch.randn(10, sum(widths), device=dev)
+    buf, plain_buf = B.clone(), B.clone()
+    got, _ = fm.memory_stream_segments_cuda(mix, tau_up, segments, buf)
+    want, _ = fm.memory_stream_segments_plain(mix, tau_up, segments, plain_buf)
+    assert torch.equal(got, want) and torch.equal(buf, plain_buf)
+    before = (fa.row_stream_segments_cuda.launches, fm.memory_stream_segments_cuda.launches)
+    more = segments + segments[:1]
+    with pytest.raises(ValueError, match=f"1 to {count} segments"):
+        fa.row_stream_segments_cuda(w, more)
+    with pytest.raises(ValueError, match=f"1 to {count} segments"):
+        fm.memory_stream_segments_cuda(mix, tau_up, more,
+                                       torch.zeros(10, sum(widths) + widths[0], device=dev))
+    assert (fa.row_stream_segments_cuda.launches,
+            fm.memory_stream_segments_cuda.launches) == before
+
+
+def test_grouped_wrappers_reject_what_the_kernels_do_not_take(dev):
+    seg = torch.zeros(4, 16, device=dev)
+    w, mix, tu = torch.ones(4, device=dev), torch.eye(4, device=dev), torch.ones(4, device=dev)
+    buf = torch.zeros(4, 32, device=dev)
+    for other in (seg.to(torch.bfloat16), torch.zeros(5, 16, device=dev), seg.cpu()):
+        with pytest.raises(ValueError, match="share the first one's device, dtype and n"):
+            fa.row_stream_segments_cuda(w, [seg, other])
+        with pytest.raises(ValueError, match="share the first one's device, dtype and n"):
+            fm.memory_stream_segments_cuda(mix, tu, [seg, other], buf)
+    with pytest.raises(ValueError, match="tile"):
+        fm.memory_stream_segments_cuda(mix, tu, [seg, seg], torch.zeros(4, 31, device=dev))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fm.memory_stream_segments_cuda(mix, tu, [seg, seg], buf.cpu())
+    with pytest.raises(TypeError):
+        fm.memory_stream_segments_cuda(mix, tu, [seg.double(), seg.double()], buf)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.row_stream_segments_cuda(w, [torch.zeros(4, 32, device=dev)[:, ::2]])
 
 
 # -- the clustered kernels and the dense relay mix ----------------------------
@@ -477,6 +584,30 @@ def test_stream_result_is_independent_of_block_d(dev, dtype, d):
     outs += [rb.block_row_stream_cuda(w.reshape(1, 10), X, block_d=b) for b in (16, 2048, 1 << 20)]
     assert all(torch.equal(o, outs[0]) for o in outs)
     assert torch.equal(outs[0], fa.fused_aggregate_plain(A, tau_up, tau_dd, X))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [272282, 272281, 4099])
+def test_memory_result_is_independent_of_block_d(dev, dtype, d):
+    """block_d only bounds the columns a block takes: kernel 4 and the
+    grouped kernel 5 give the same bits, delta and buffer, at every bound,
+    and equal their plain versions."""
+    A, tau_up, tau_dd, X = _round(10, d, dtype, dev, seed=d)
+    B = torch.randn(10, d, generator=torch.Generator().manual_seed(d)).to(dev)
+    mix = ops.mixing_mask(A, tau_dd)
+    widths = SEGMENT_WIDTHS["cifar_cnn_full"] if d == 272282 else (1, 10, d - 11)
+    segments = [s.contiguous() for s in X.split(list(widths), dim=1)]
+    outs = []
+    for b in (16, 2048, 1 << 20):
+        buf = B.clone()
+        outs.append((fm.fused_memory_update_cuda(A, tau_up, tau_dd, X, buf, block_d=b)[0], buf))
+        buf = B.clone()
+        outs.append((fm.memory_stream_segments_cuda(mix, tau_up, segments, buf, block_d=b)[0],
+                     buf))
+    plain_buf = B.clone()
+    want = fm.fused_memory_update_plain(A, tau_up, tau_dd, X, plain_buf)[0]
+    for delta, buf in outs:
+        assert torch.equal(delta, want) and torch.equal(buf, plain_buf)
 
 
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}

@@ -6,6 +6,11 @@ Inputs are made with numpy from a seed and handed to both.  Both sides
 widen bf16/int8 to f32 exactly and accumulate in f32, so they differ only
 in summation order: atol 1e-5 (the bar ``tests/test_fused_aggregate.py``
 holds the Pallas kernel to) for every dtype.
+
+Inside the port the grouped row stream (one launch over a round's segment
+list) equals the per-segment and the monolithic passes bitwise, on the
+CPU through the plain versions; the grouped CUDA wrapper's checks run
+before it touches a card.
 """
 
 import jax.numpy as jnp
@@ -13,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_segments import SEGMENT_WIDTHS
 from repro.kernels.fused_aggregate import fused_aggregate_pallas, row_stream_pallas
 from repro.kernels.relay_block import (
     block_fused_aggregate_pallas,
@@ -20,10 +26,14 @@ from repro.kernels.relay_block import (
     block_row_stream_pallas,
 )
 from repro.kernels.relay_mix import relay_mix_pallas
+from repro_torch import strategies, tree
+from repro_torch.core import flatten
 from repro_torch.kernels import fused_aggregate as fa
+from repro_torch.kernels import fused_memory as fm
 from repro_torch.kernels import ops
 from repro_torch.kernels import relay_block as rb
 from repro_torch.kernels import relay_mix as rm
+from repro_torch.strategies.base import ExecutionContext
 
 ATOL = 1e-5
 
@@ -125,6 +135,108 @@ def test_segments_equal_monolithic_bitwise():
     cuts = [0, 10, 11, 400, 1000]
     parts = [ops.row_stream(w, args[3][:, a:b].contiguous()) for a, b in zip(cuts, cuts[1:])]
     assert torch.equal(torch.cat(parts), mono)
+
+
+# -- one launch over a round's segment list -----------------------------------
+
+def _segments_of(x, widths):
+    return [s.contiguous() for s in x.split(list(widths), dim=1)]
+
+
+@pytest.mark.parametrize("n", [4, 10, 33])
+@pytest.mark.parametrize("widths", sorted(SEGMENT_WIDTHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_row_stream_segments_equal_per_segment_and_monolithic_bitwise(n, widths, dtype):
+    """The grouped plain version against the per-segment passes and the
+    monolithic kernel's plain version (kernel 1, or kernel 6 for int8)."""
+    widths = SEGMENT_WIDTHS[widths]
+    A, tau_up, tau_dd, X = (torch.from_numpy(a)
+                            for a in _round_inputs(n, sum(widths), seed=n + len(widths)))
+    if dtype == "int8":
+        x = (X / INT8_SCALE).round().clamp(-127, 127).to(torch.int8)
+        scale = torch.full((n, 1), INT8_SCALE)
+        w = ops.fold_dequant_scales(ops.collapsed_weight_row(A, tau_up, tau_dd), scale)
+        mono = ops.fused_dequant_aggregate(A, tau_up, tau_dd, x, scale)
+    else:
+        x = X.to(getattr(torch, dtype))
+        w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+        mono = ops.fused_aggregate(A, tau_up, tau_dd, x)
+    segments = _segments_of(x, widths)
+    got = ops.row_stream_segments(w, segments)
+    assert got.shape == (sum(widths),) and got.dtype == torch.float32
+    assert torch.equal(got, torch.cat([ops.row_stream(w, s) for s in segments]))
+    assert torch.equal(got, mono)
+
+
+def test_segment_ops_on_the_cpu_launch_nothing():
+    wrappers = (fa.row_stream_cuda, fa.row_stream_segments_cuda, fm.memory_stream_cuda,
+                fm.memory_stream_segments_cuda, fm.fused_memory_update_cuda)
+    before = [f.launches for f in wrappers]
+    for f in wrappers:
+        f.launches = 0
+    try:
+        A, tau_up, tau_dd, X = (torch.from_numpy(a) for a in _round_inputs(10, 4108, seed=2))
+        segments = _segments_of(X, SEGMENT_WIDTHS["off_grid"])
+        ops.row_stream_segments(ops.collapsed_weight_row(A, tau_up, tau_dd), segments)
+        q = [s.mul(40).round().to(torch.int8) for s in segments]
+        ops.row_stream_segments(tau_up, q)
+        ops.memory_stream_segments(ops.mixing_mask(A, tau_dd), tau_up, segments,
+                                   torch.zeros(10, 4108))
+        assert [f.launches for f in wrappers] == [0] * len(wrappers)
+    finally:
+        for f, b in zip(wrappers, before):
+            f.launches = b
+
+
+def test_grouped_cuda_wrappers_refuse_what_the_kernels_do_not_take():
+    """Checked before any card is touched: CPU tensors, mixed dtypes, a
+    segment whose n differs, a buffer the segments do not tile, and more
+    segments than the kernel's parameter table holds."""
+    seg = torch.zeros(4, 16)
+    w, mix, tu, buf = torch.ones(4), torch.eye(4), torch.ones(4), torch.zeros(4, 32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.row_stream_segments_cuda(w, [seg, seg])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fm.memory_stream_segments_cuda(mix, tu, [seg, seg], buf)
+    for other in (seg.to(torch.bfloat16), torch.zeros(5, 16)):
+        with pytest.raises(ValueError, match="share the first one's device, dtype and n"):
+            fa.row_stream_segments_cuda(w, [seg, other])
+        with pytest.raises(ValueError, match="share the first one's device, dtype and n"):
+            fm.memory_stream_segments_cuda(mix, tu, [seg, other], buf)
+    for bad in (torch.zeros(4, 33), torch.zeros(5, 32), torch.zeros(32)):
+        with pytest.raises(ValueError, match="tile"):
+            fm.memory_stream_segments_cuda(mix, tu, [seg, seg], bad)
+        with pytest.raises(ValueError, match="tile"):
+            fm.memory_stream_segments_plain(mix, tu, [seg, seg], bad)
+    for count in (0, fa.MAX_SEGMENTS + 1):
+        with pytest.raises(ValueError, match=f"1 to {fa.MAX_SEGMENTS} segments"):
+            fa.row_stream_segments_cuda(w, [seg] * count)
+        with pytest.raises(ValueError, match=f"1 to {fa.MAX_SEGMENTS} segments"):
+            fm.memory_stream_segments_cuda(mix, tu, [seg] * count, torch.zeros(4, 16 * count))
+
+
+def test_quantized_segment_path_matches_the_reference_row_stream():
+    """The quantized strategy's segmented path (one grouped launch a round)
+    against the reference's ``row_stream_pallas`` in interpret mode on the
+    same int8 segments and folded weights: the codec's segment encoding is
+    replayed from the same state, so both sides see the same q."""
+    n = 8
+    rng = np.random.default_rng(12)
+    deltas = {k: torch.from_numpy(rng.normal(size=(n,) + s).astype(np.float32))
+              for k, s in {"a": (16, 32), "b": (10,), "c": (3, 3)}.items()}
+    A, tau_up, tau_dd, _ = _round_inputs(n, 1, seed=13)
+    strategy = strategies.get("quantized", codec="int8", fused="kernel")
+    state = strategy.init_state(n, 16 * 32 + 10 + 9)
+    got, _ = strategy.aggregate_tree(deltas, *(torch.from_numpy(a) for a in (tau_up, tau_dd, A)),
+                                     state, ExecutionContext(n_clients=n, segment_d=1))
+    (qs, scale), _ = strategy.codec.encode_segments(
+        flatten.ravel_stacked_segments(deltas, dtype=torch.float32), state[0])
+    w = (tau_up @ (A * tau_dd.T) / n).astype(np.float32)
+    ws = w * (scale.numpy().reshape(-1) / strategy._gain(16 * 32 + 10 + 9))
+    for g, q in zip(tree.leaves(got), qs):
+        want = row_stream_pallas(jnp.asarray(ws, jnp.float32), jnp.asarray(q.numpy()),
+                                 block_d=2048, interpret=True)
+        np.testing.assert_allclose(g.reshape(-1).numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
 # -- the clustered (block-sparse) kernels and the dense relay mix -------------

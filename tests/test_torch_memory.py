@@ -6,7 +6,8 @@ reference.
   inputs, n in {4, 10, 33}, f32 and bf16 stacks: atol 1e-5 (both widen
   bf16 exactly and accumulate in f32; they differ in summation order).
 * Inside the port, segmented equals monolithic bitwise (the same
-  operations in the same order on each column).
+  operations in the same order on each column), and the grouped pass over
+  a round's segment list equals both, writing the carried buffer in place.
 * ``MemoryStrategy.aggregate`` against the reference's: atol 1e-5.
 * With every link up the buffer is never read, and every memory path
   reduces to the port's colrel within 1e-6.
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_segments import SEGMENT_WIDTHS
 from repro import strategies as jstrategies
 from repro.kernels.fused_memory import fused_memory_update_pallas, memory_stream_pallas
 from repro.strategies.base import ExecutionContext as JExecutionContext
@@ -100,6 +102,52 @@ def test_segments_write_the_monolithic_buffer_bitwise(n):
              for a, b in zip(cuts, cuts[1:])]
     assert torch.equal(torch.cat(parts), mono)
     assert torch.equal(buf, mono_buf)
+
+
+@pytest.mark.parametrize("n", [4, 10, 33])
+@pytest.mark.parametrize("widths", sorted(SEGMENT_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_segments_equal_per_segment_and_monolithic_bitwise(n, widths, dtype):
+    """One grouped pass over the round's segment list against per-segment
+    passes into column views and the monolithic update: delta and buffer
+    bitwise; the grouped pass writes the buffer it was given in place."""
+    widths = SEGMENT_WIDTHS[widths]
+    A, tau_up, tau_dd, X, B = _t(*_inputs(n, sum(widths), seed=3 * n + len(widths)))
+    X = X.to(dtype)
+    mix = ops.mixing_mask(A, tau_dd)
+    segments = [s.contiguous() for s in X.split(list(widths), dim=1)]
+    buf = B.clone()
+    ptr = buf.data_ptr()
+    delta, out = ops.memory_stream_segments(mix, tau_up, segments, buf)
+    assert out is buf and out.data_ptr() == ptr
+    assert delta.shape == (sum(widths),) and delta.dtype == torch.float32
+    seg_buf, parts, off = B.clone(), [], 0
+    for s in segments:
+        parts.append(ops.memory_stream(mix, tau_up, s, seg_buf[:, off:off + s.shape[1]])[0])
+        off += s.shape[1]
+    mono_buf = B.clone()
+    mono, _ = ops.fused_memory_update(A, tau_up, tau_dd, X, mono_buf)
+    assert torch.equal(delta, torch.cat(parts)) and torch.equal(buf, seg_buf)
+    assert torch.equal(delta, mono) and torch.equal(buf, mono_buf)
+
+
+def test_segmented_strategy_updates_the_carried_buffer_in_place():
+    n = 10
+    deltas = _as_torch(_deltas(n, seed=14))
+    d = sum(x[0].numel() for x in tree.leaves(deltas))
+    _, tau_up, tau_dd, _, B = _inputs(n, d, seed=15)
+    A = np.abs(np.random.default_rng(16).normal(size=(n, n))).astype(np.float32)
+    state = torch.from_numpy(B.copy())
+    ptr = state.data_ptr()
+    s = strategies.get("memory", fused="kernel")
+    seg, new_state = s.aggregate_tree(deltas, *_t(tau_up, tau_dd, A), state,
+                                      ExecutionContext(n_clients=n, segment_d=1))
+    assert new_state is state and new_state.data_ptr() == ptr
+    mono, mono_state = s.aggregate_tree(deltas, *_t(tau_up, tau_dd, A), torch.from_numpy(B.copy()),
+                                        ExecutionContext(n_clients=n))
+    assert torch.equal(new_state, mono_state)
+    for a, b in zip(tree.leaves(seg), tree.leaves(mono)):
+        assert torch.equal(a, b)
 
 
 def _deltas(n, seed):
