@@ -13,7 +13,8 @@ each of which fails the run by raising:
    registers, spills and shared memory for every kernel printed);
 3. kernels against their plain PyTorch versions on the card, at the
    shapes of the main path and at off-grid ones: the ColRel aggregation
-   kernels, the memory strategy's kernels (segment passes writing into
+   kernels (kernels 1 and 6 bitwise, from n = 1 to 4096, across the
+   collapse's load batches), the memory strategy's kernels (segment passes writing into
    strided views of one buffer, held to the monolithic kernel at 0), the
    int8 dequant kernel, and bitwise: the grouped launches of kernels 2
    (f32, bf16, int8) and 5 (f32, bf16) over the 61 cifar_cnn_full segments
@@ -22,7 +23,9 @@ each of which fails the run by raising:
    mix, block aggregation, block row stream) up to n = 16,384 as 256
    clusters of 64, the dense relay mix, the clustered kernels at C = 1
    against the dense ones, and block segments against the monolithic
-   pass;
+   pass; the grouped launch of kernel 9 (f32, bf16) over the 61 segments
+   against its plain version, the per-segment kernel 9 and kernel 8, at
+   C = 1 against the grouped kernel 2, and at n = 16,384, bitwise;
 4. the main path at full width: three rounds of the paper's ColRel CNN
    experiment (cifar_cnn_full) through the fused kernel, again through the
    segment-streaming kernel and again through the collapse path, with the
@@ -31,8 +34,8 @@ each of which fails the run by raising:
    three rounds of the memory strategy under bursty (Markov) blockage and
    of the int8 quantized strategy, each through its kernel, its segment
    and its plain (fused=False) path, launches read around each run (the
-   segmented colrel, memory and quantized paths launch their grouped
-   kernel once a round); the
+   segmented colrel, memory, quantized and clustered paths launch their
+   grouped kernel once a round); the
    relay mixes through their entry points (ops.relay_mix at the kernel
    benchmark's n=16, d=2^20, ops.block_relay_mix on cifar_cnn_full
    deltas); three rounds of clustered relaying of cifar_cnn_full (n=10 as
@@ -44,9 +47,12 @@ each of which fails the run by raising:
    fused=False;
 5. times of each kernel at the main path's shapes beside its bound, its
    plain version and one PyTorch call computing the same product where
-   there is one; kernels 2 and 5 as the segmented paths launch them, one
+   there is one; kernels 2, 5 and 9 as the segmented paths launch them, one
    grouped call over the 61 segments, beside the sum of their 61
-   per-segment launches each timed alone (per_segment_ms);
+   per-segment launches each timed alone (per_segment_ms); kernel 6 beside
+   an empty kernel of its grid (floor_ms), kernel 2's launch on the same
+   int8 stack with the folded row given (no_collapse_ms) and a device copy
+   of the stack (copy_ms), with its grid;
 6. where one more round of the kernel path spends its time
    (torch.profiler): the device's busy share and the top operations;
 7. serving seamless-m4t-large-v2 at full width (24 + 24 layers, d_model
@@ -377,14 +383,19 @@ def main():
                              "block_relay_mix", "block_fused_aggregate", "block_row_stream",
                              "flash_attention", "ssd_scan"),
                             0.0)
+    # kernels 1 and 6 bitwise: n = 1 to 33 at the main path's and off-grid d,
+    # and n = 4096 (the wrappers' largest, 256 batches of the collapse's
+    # loads) at d = 4099
+    collapse_cases = [(n_, d_) for n_ in (1, 4, 10, 33) for d_ in (1, 1000, 4099, d_full)]
+    collapse_cases.append((4096, 4099))
     for dtype in (torch.float32, torch.bfloat16):
-        for n_ in (4, 10, 33):
-            for d_ in (1, 1000, 4099, d_full):
-                A, tau_up, tau_dd, X = inputs(n_, d_, dtype)
-                e = err(fa.fused_aggregate_cuda(A, tau_up, tau_dd, X),
-                        fa.fused_aggregate_plain(A, tau_up, tau_dd, X))
-                max_err["fused_aggregate"] = max(max_err["fused_aggregate"], e)
-                print(f"[kernels] fused_aggregate {str(dtype)[6:]} n={n_} d={d_} max_abs_err={e:.3e}")
+        for n_, d_ in collapse_cases:
+            A, tau_up, tau_dd, X = inputs(n_, d_, dtype)
+            e = exact_row("fused_aggregate", fa.fused_aggregate_cuda(A, tau_up, tau_dd, X),
+                          fa.fused_aggregate_plain(A, tau_up, tau_dd, X),
+                          f"{str(dtype)[6:]} n={n_} d={d_}")
+            print(f"[kernels] fused_aggregate {str(dtype)[6:]} n={n_} d={d_} max_abs_err={e:.3e} "
+                  f"(bitwise)")
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         worst = 0.0
         A, tau_up, tau_dd, _ = inputs(n, 1, torch.float32)
@@ -480,14 +491,15 @@ def main():
         print(f"[kernels] memory_stream_segments {str(dtype)[6:]}, one launch over the 61 "
               f"segments: max_abs_err={e:.3e} vs plain (delta and buffer); == the per-segment "
               f"kernel and the monolithic kernel, bitwise")
-    for n_ in (4, 10, 33):
-        for d_ in (1, 1000, 4099, d_full):
-            A, tau_up, tau_dd, q = inputs(n_, d_, torch.int8)
-            scale = torch.rand(n_, 1, generator=g).to(dev) / 40
-            e = err(fdq.fused_dequant_aggregate_cuda(A, tau_up, tau_dd, q, scale),
-                    fdq.fused_dequant_aggregate_plain(A, tau_up, tau_dd, q, scale))
-            max_err["fused_dequant_aggregate"] = max(max_err["fused_dequant_aggregate"], e)
-            print(f"[kernels] fused_dequant_aggregate int8 n={n_} d={d_} max_abs_err={e:.3e}")
+    for n_, d_ in collapse_cases:
+        A, tau_up, tau_dd, q = inputs(n_, d_, torch.int8)
+        scale = torch.rand(n_, 1, generator=g).to(dev) / 40
+        e = exact_row("fused_dequant_aggregate",
+                      fdq.fused_dequant_aggregate_cuda(A, tau_up, tau_dd, q, scale),
+                      fdq.fused_dequant_aggregate_plain(A, tau_up, tau_dd, q, scale),
+                      f"int8 n={n_} d={d_}")
+        print(f"[kernels] fused_dequant_aggregate int8 n={n_} d={d_} max_abs_err={e:.3e} "
+              f"(bitwise)")
 
     # the clustered kernels and the dense relay mix, held bitwise (tolerance
     # 0): they run their plain versions' arithmetic in the same order
@@ -569,6 +581,38 @@ def main():
               f"block segments vs monolithic {dtype}")
         print(f"[kernels] block_row_stream {str(dtype)[6:]} over the 61 segments == "
               f"block_fused_aggregate at n=10 (C=2, m=5) d={d_full}: bitwise")
+    # the grouped launch of kernel 9 over the 61 segments, bitwise: against
+    # its plain version, the per-segment kernel 9 and kernel 8; at C = 1
+    # against the grouped kernel 2; and at n = 16,384 (256 clusters of 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        Ab, tau_up, tau_b, X = block_inputs(2, 5, d_full, dtype)
+        w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+        segs = [s_.contiguous() for s_ in X.split(full_sizes, dim=1)]
+        got = rb.block_row_stream_segments_cuda(w, segs)
+        e = exact("block_row_stream", got, rb.block_row_stream_segments_plain(w, segs),
+                  f"grouped {str(dtype)[6:]}")
+        check(torch.equal(got, torch.cat([rb.block_row_stream_cuda(w, s_) for s_ in segs])),
+              f"block_row_stream grouped {dtype} vs the per-segment kernel")
+        check(torch.equal(got, rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X)),
+              f"block_row_stream grouped {dtype} vs block_fused_aggregate")
+        A, tau_up, tau_dd, X = inputs(n, d_full, dtype)
+        w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+        segs = [s_.contiguous() for s_ in X.split(full_sizes, dim=1)]
+        check(torch.equal(rb.block_row_stream_segments_cuda(w.reshape(1, n), segs),
+                          fa.row_stream_segments_cuda(w, segs)),
+              f"block_row_stream grouped at C=1 vs row_stream grouped {dtype}")
+        Ab, tau_up, tau_b, X = block_inputs(256, 64, 1 + 10 + 4097, dtype)
+        w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+        segs = [s_.contiguous() for s_ in X.split([1, 10, 4097], dim=1)]
+        got = rb.block_row_stream_segments_cuda(w, segs)
+        e = max(e, exact("block_row_stream", got, rb.block_row_stream_segments_plain(w, segs),
+                         f"grouped {str(dtype)[6:]} n=16384"))
+        check(torch.equal(got, rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X)),
+              f"block_row_stream grouped {dtype} n=16384 vs block_fused_aggregate")
+        print(f"[kernels] block_row_stream_segments {str(dtype)[6:]}, one launch over the 61 "
+              f"segments (C=2, m=5): max_abs_err={e:.3e} vs plain; == the per-segment kernel and "
+              f"block_fused_aggregate; at C=1 == row_stream_segments; at n=16384 (C=256, m=64) "
+              f"over widths 1, 10, 4097 == plain and block_fused_aggregate; all bitwise")
 
     # kernel 10, causal flash attention, against its plain version; T=192
     # is a ragged tail at the kernel's 128-row query tiles
@@ -762,6 +806,7 @@ def main():
                 "relay_mix": rm.relay_mix_cuda, "block_relay_mix": rb.block_relay_mix_cuda,
                 "block_fused_aggregate": rb.block_fused_aggregate_cuda,
                 "block_row_stream": rb.block_row_stream_cuda,
+                "block_row_stream_segments": rb.block_row_stream_segments_cuda,
                 "flash_attention": fl.flash_attention_cuda, "ssd_scan": ssd.ssd_scan_cuda}
 
     def drive(label, strategy, options, segment_d, *, channel="static", expect, make=None,
@@ -880,7 +925,7 @@ def main():
     cl_runs = {}
     for label, fused, segment_d, expect in (
             ("kernel", "kernel", 0, {"block_fused_aggregate": ROUNDS}),
-            ("segmented", "kernel", 1, {"block_row_stream": ROUNDS * N_LEAVES}),
+            ("segmented", "kernel", 1, {"block_row_stream_segments": ROUNDS}),
             ("collapse", "collapse", 0, {}), ("plain", False, 0, {})):
         cl_runs[label] = drive(
             f"clustered {label}", "clustered", {"fused": fused}, segment_d,
@@ -888,7 +933,7 @@ def main():
             make=lambda f=fused, sd=segment_d: clustered_exp(
                 f, sd, ClusteredStaticChannel(cmodel, seed=0)))
     bfa_launches = cl_runs["kernel"][1]["block_fused_aggregate"]
-    brs_launches = cl_runs["segmented"][1]["block_row_stream"]
+    brs_launches = cl_runs["segmented"][1]["block_row_stream_segments"]
     compare("clustered kernel", cl_runs["kernel"][0],
             (("segmented", cl_runs["segmented"][0], 0.0),
              ("collapse", cl_runs["collapse"][0], PARAM_ATOL),
@@ -1040,14 +1085,23 @@ def main():
                      launches=ms_launches, max_abs_err=max_err["memory_stream"],
                      bound_by="bytes", **ms_times))
 
-    # the dequant kernel: the int8 stack read, the (d,) delta written
+    # the dequant kernel: the int8 stack read, the (d,) delta written;
+    # beside it (a) an empty kernel of its grid, the harness's floor for a
+    # lone launch, (b) kernel 2's launch on the same stack with the folded
+    # row given (kernel 6 without its collapse), (d) a device copy of the
+    # stack
+    fdq_grid = fdq.dequant_grid(n, d_full)
     fdq_times = dict(
         ms=median_ms(lambda: fdq.fused_dequant_aggregate_cuda(A, tu, td, q8, scale), flush, 100),
         plain_ms=median_ms(lambda: fdq.fused_dequant_aggregate_plain(A, tu, td, q8, scale),
                            flush, 30),
         library_ms=None,
         bound_ms=bound_ms(small_bytes + 4 * n + n * d_full + 4 * d_full,
-                          2 * n * d_full + 4 * n * n))
+                          2 * n * d_full + 4 * n * n),
+        floor_ms=median_ms(lambda: fdq.launch_floor_cuda(fdq_grid["blocks"]), flush, 100),
+        no_collapse_ms=median_ms(lambda: fa.row_stream_cuda(ws, q8), flush, 100),
+        copy_ms=median_ms(lambda: torch.empty_like(q8).copy_(q8), flush, 100),
+        grid=fdq_grid)
     two_calls_ms = median_ms(lambda: torch.matmul(ws, q8.float()), flush, 100)
     rows.append(dict(name="fused_dequant_aggregate", route="cuda",
                      source="src/repro_torch/kernels/csrc/fused_aggregate.cu",
@@ -1076,13 +1130,19 @@ def main():
                      replaces="src/repro/kernels/relay_block.py:113",
                      launches=bfa_launches, max_abs_err=max_err["block_fused_aggregate"],
                      bound_by="bytes", **bfa_times))
-    brs_times = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for s_ in segs:
-        brs_times["ms"] += median_ms(lambda: rb.block_row_stream_cuda(wb, s_), flush, 30)
-        brs_times["plain_ms"] += median_ms(lambda: rb.block_row_stream_plain(wb, s_), flush, 10)
-        brs_times["library_ms"] += median_ms(lambda: torch.matmul(wflat, s_), flush, 30)
-        brs_times["bound_ms"] += bound_ms(4 * n + 4 * n * s_.shape[1] + 4 * s_.shape[1],
-                                          2 * n * s_.shape[1])
+    # kernel 9 as the segmented clustered path launches it, one grouped call
+    # over the 61 segments (ms), beside the 61 per-segment launches, each
+    # timed alone and summed (per_segment_ms); library: one call on the
+    # monolithic stack, and the per-segment calls summed
+    brs_times = dict(
+        ms=median_ms(lambda: rb.block_row_stream_segments_cuda(wb, segs), flush, 100),
+        per_segment_ms=sum(median_ms(lambda: rb.block_row_stream_cuda(wb, s_), flush, 30)
+                           for s_ in segs),
+        plain_ms=median_ms(lambda: rb.block_row_stream_segments_plain(wb, segs), flush, 10),
+        library_ms=median_ms(lambda: torch.matmul(wflat, X), flush, 100),
+        library_per_segment_ms=sum(median_ms(lambda: torch.matmul(wflat, s_), flush, 30)
+                                   for s_ in segs),
+        bound_ms=bound_ms(4 * n + 4 * n * d_full + 4 * d_full, 2 * n * d_full))
     rows.append(dict(name="block_row_stream", route="cuda",
                      source="src/repro_torch/kernels/csrc/relay_block.cu",
                      replaces="src/repro/kernels/relay_block.py:171",
@@ -1121,7 +1181,7 @@ def main():
         "fused_dequant_aggregate": "one launch, n=10 d=272282 int8",
         "block_fused_aggregate": "one launch (the collapse, then the stream launched behind "
                                  "it), n=10 as C=2 m=5, d=272282 f32",
-        "block_row_stream": "sum over the 61 segments of one round, n=10 as C=2 m=5, f32",
+        "block_row_stream": "one launch over the 61 segments of one round, n=10 as C=2 m=5, f32",
         "block_relay_mix": "one launch, n=10 as C=2 m=5, d=272282 f32",
         "relay_mix": "one launch, n=16 d=2^20 f32 (the kernel benchmark's shape)",
     }
@@ -1149,6 +1209,14 @@ def main():
     print(f"[time] fused_dequant_aggregate's library_ms is null: no single PyTorch call "
           f"takes the int8 stack; two calls, torch.matmul(ws, q.float()): {two_calls_ms:.4f} ms "
           f"[{card}]")
+    print(f"[time] fused_dequant_aggregate beside (a) an empty kernel of its grid "
+          f"{fdq_times['floor_ms']:.4f} ms, (b) kernel 2 on the same int8 stack with the folded row "
+          f"given {fdq_times['no_collapse_ms']:.4f} ms, (c) kernel 6 {fdq_times['ms']:.4f} ms, "
+          f"(d) a device copy of the stack {fdq_times['copy_ms']:.4f} ms; grid {fdq_grid} "
+          f"[{card}]")
+    print(f"[time] block_row_stream's library_ms is torch.matmul(w_flat, X) on the monolithic "
+          f"stack; torch.matmul(w_flat, seg) over the 61 segments, summed: "
+          f"{brs_times['library_per_segment_ms']:.4f} ms [{card}]")
     for label, secs in round_s.items():
         print(f"[time] s/round {label}: {[round(x, 4) for x in secs]}, median of rounds 2-{ROUNDS} "
               f"{statistics.median(secs[1:]):.4f} [{card}]")

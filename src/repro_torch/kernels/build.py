@@ -39,6 +39,11 @@ _SIGNATURES = {
     "repro_row_stream": (_P, ctypes.POINTER(_I64), _I, _P, _I, _I64, _I, _P),
     # (A, tau_up, tau_dd, scale, q, out, n, d, block_d, inv_n, stream)
     "repro_fused_dequant_aggregate": (_P, _P, _P, _P, _P, _P, _I, _I64, _I64, _F, _P),
+    # (n, d, block_d, out[5]) -> kernel 6's grid: blocks, columns a block, columns a
+    # thread, blocks an SM holds, SMs
+    "repro_fused_dequant_grid": (_I, _I64, _I64, ctypes.POINTER(_I64)),
+    # (blocks, stream): an empty kernel of that grid
+    "repro_launch_floor": (_I64, _P),
     # (A, tau_up, tau_dd, x, ldx, buf, ldb, delta, n, d, block_d, dtype, inv_n, stream)
     "repro_fused_memory_update": (_P, _P, _P, _P, _I64, _P, _I64, _P, _I, _I64, _I64, _I,
                                   _F, _P),
@@ -50,6 +55,8 @@ _SIGNATURES = {
     "repro_block_fused_aggregate": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I64, _I, _F, _P),
     # (w, x, out, n, d, block_d, dtype, stream)
     "repro_block_row_stream": (_P, _P, _P, _I, _I64, _I64, _I, _P),
+    # (w, table of (x, d) rows, segments, out, n, block_d, dtype, stream)
+    "repro_block_row_stream_segments": (_P, ctypes.POINTER(_I64), _I, _P, _I, _I64, _I, _P),
     # (A, tau_b, x, out, C, m, d, dtype, stream)
     "repro_block_relay_mix": (_P, _P, _P, _P, _I, _I, _I64, _I, _P),
     # (mix, x, out, n, d, dtype, stream)

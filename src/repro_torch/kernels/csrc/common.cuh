@@ -1,8 +1,9 @@
 // Helpers shared by the port's streaming kernels (fused_aggregate.cu,
 // fused_memory.cu, relay_block.cu): element widening, 16-byte column
 // loads, the alignment test that picks the vector path, the weighted row
-// stream of the aggregation kernels, and the segment table of the kernels
-// that run one launch over a round's segment list.
+// stream of the aggregation kernels, the segment table of the kernels that
+// run one launch over a round's segment list, and the grouped row stream
+// that kernels 2 and 9 share.
 //
 // The stream is the row reduction out = w @ X of five TPU kernels: kernels
 // 1, 2 and 6 (src/repro/kernels/fused_aggregate.py fused_aggregate_pallas
@@ -78,29 +79,32 @@ constexpr int kRowBatch = 12;
 
 template <typename T, int V>
 struct RowWord {
-  // one row's V columns as loaded: a 16-byte word, or one element
-  using type = typename std::conditional<V * sizeof(T) == 16, uint4, T>::type;
+  // one row's V columns as loaded: a 16- or 8-byte word, or one element
+  using type = typename std::conditional<
+      V == 1, T,
+      typename std::conditional<V * sizeof(T) == 16, uint4, uint2>::type>::type;
 };
 
 template <typename T, int V>
 __device__ __forceinline__ typename RowWord<T, V>::type load_word(const T* __restrict__ p) {
-  if constexpr (V * sizeof(T) == 16) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  } else {
-    static_assert(V == 1, "the scalar path loads one element");
+  using Word = typename RowWord<T, V>::type;
+  if constexpr (V == 1) {
     return p[0];
+  } else {
+    static_assert(sizeof(Word) == V * sizeof(T), "a word is 8 or 16 bytes");
+    return __ldg(reinterpret_cast<const Word*>(p));
   }
 }
 
 template <typename T, int V>
 __device__ __forceinline__ void widen_word(const typename RowWord<T, V>::type& raw,
                                            float (&x)[V]) {
-  if constexpr (V * sizeof(T) == 16) {
+  if constexpr (V == 1) {
+    x[0] = to_f32(raw);
+  } else {
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int k = 0; k < V; ++k) x[k] = to_f32(e[k]);
-  } else {
-    x[0] = to_f32(raw);
   }
 }
 
@@ -203,7 +207,7 @@ inline dim3 stream_grid(int64_t d, int64_t cols) {
   return dim3(static_cast<unsigned>((d + cols - 1) / cols));
 }
 
-// -- one launch over a round's segment list (kernels 2, 4 and 5) --------------
+// -- one launch over a round's segment list (kernels 2, 4, 5 and 9) -----------
 //
 // The segmented paths stream a round's leaves (61 of them for cifar_cnn_full,
 // 10 to 36,864 columns wide) as separate (n, d_i) tensors.  One launch covers
@@ -242,6 +246,72 @@ int64_t place_segments(Table& tab, int64_t cols) {
     blocks += (tab.seg[s].d + cols - 1) / cols;
   }
   return blocks;
+}
+
+// -- the grouped row stream (kernels 2 and 9) ----------------------------------
+//
+// out = w @ [x_0 | x_1 | ...] over a round's segments, one launch: the body
+// of fused_aggregate.cu's row_stream_kernel (kernel 2) and relay_block.cu's
+// block_row_segments_kernel (kernel 9, the (C, m) rows laid end to end as
+// one (n,) row: clusters are consecutive row ranges).  The weight row is
+// given and read through the cache, not staged, so n is not bound by
+// shared memory.
+
+// One segment of the round: its (n, d) stack, rows contiguous, and its first
+// column in out.
+struct RowSegment {
+  const void* x;
+  int64_t d;
+  int64_t off;
+  int32_t first_block;
+  int32_t vec;  // rows 16-byte aligned: the 16-byte path
+};
+
+struct RowSegments {
+  int32_t count;
+  int64_t cols;
+  RowSegment seg[kMaxSegments];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void segment_rows(const float* __restrict__ w,
+                                             float* __restrict__ out, int n,
+                                             const RowSegments& tab) {
+  const RowSegment& s = tab.seg[find_segment(tab)];
+  const T* x = static_cast<const T*>(s.x);
+  const int64_t block = static_cast<int64_t>(blockIdx.x) - s.first_block;
+  if (s.vec)
+    weighted_rows<T, V>(w, x, out + s.off, n, s.d, tab.cols, block, [] {});
+  else
+    weighted_rows<T, 1>(w, x, out + s.off, n, s.d, tab.cols, block, [] {});
+}
+
+// Fills tab from `table`, count rows of (x pointer, d) whose outputs follow
+// each other in out, for blocks of `kernel`; returns the grid's size, or 0
+// for a count the table cannot take.  The stream's width is that of the
+// total columns for a card that holds `resident` blocks less one partial
+// block a segment.
+template <typename T>
+int64_t place_row_segments(RowSegments& tab, const int64_t* table, int count, int64_t block_d,
+                           const void* kernel) {
+  constexpr int V = 16 / sizeof(T);
+  if (count < 1 || count > kMaxSegments) return 0;
+  tab.count = count;
+  int64_t total = 0;
+  bool any_vec = false;
+  for (int s = 0; s < count; ++s) {
+    RowSegment& e = tab.seg[s];
+    e.x = reinterpret_cast<const void*>(table[2 * s]);
+    e.d = table[2 * s + 1];
+    e.off = total;
+    e.vec = rows_aligned<T>(e.x, e.d);
+    any_vec = any_vec || e.vec;
+    total += e.d;
+  }
+  const int64_t resident = resident_blocks(kernel, 0);
+  return place_segments(
+      tab, stream_cols(total, block_d, any_vec ? V : 1, resident > count ? resident - count
+                                                                          : resident));
 }
 
 }  // namespace

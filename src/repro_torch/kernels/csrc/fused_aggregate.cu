@@ -36,9 +36,23 @@
 //   kernel's occupancy so that every block is resident at once (at most
 //   block_d columns a block).  row_stream reads its given w through the
 //   cache.
+// * The collapse (kernels 1 and 6) is on the stream's critical path: every
+//   add waits for it at the block's barrier.  A thread that makes a weight
+//   issues the loads of up to kCollapseBatch terms of its sum before the
+//   first product, so at the main path's n = 10 the row costs one round
+//   trip to memory, overlapped with the stream's first loads, where a loop
+//   of dependent steps cost several.
+// * Kernel 6 streams 2.72 MB of int8 at n = 10, less than one round trip's
+//   worth of loads for the whole card: its time is a lone launch's fixed
+//   cost in the timing harness (an empty kernel of its grid takes about
+//   half of it) and one wave's latency, about what a device copy of the
+//   stack takes.  Grids in which every SM streams the same bytes, and
+//   8-byte words, measured no faster than the row stream's grid
+//   (tools/dequant_probe.py keeps each candidate).
 // * No host-side padding: each block masks its ragged last columns.
 // * row_stream_kernel takes the round's segment list (common.cuh's segment
-//   table): the segmented colrel and quantized paths make one launch a
+//   table and segment_rows, which kernel 9 shares in relay_block.cu): the
+//   segmented colrel and quantized paths make one launch a
 //   round over their 61 leaves where they made 61, each ~6 us of launch and
 //   latency for at most 1.5 MB.  Each block streams its segment's columns
 //   with weighted_rows into the segment's columns of the round's (d,)
@@ -64,20 +78,42 @@
 namespace {
 
 // w_j = inv_n * sum_i tau_up[i] * (A[i, j] * tau_dd[j, i]), i in order,
-// then times scale[j] where a scale row is given.
+// then times scale[j] where a scale row is given.  The collapse runs while
+// the stream's first loads are in flight (weighted_rows' ready()), and the
+// stream's adds wait for it at the barrier behind it, so what counts is its
+// latency: a thread issues the loads of kCollapseBatch terms (A, tau_dd,
+// tau_up; the scale first) before its first product, one round trip to
+// memory for n <= kCollapseBatch where a loop of n dependent steps took
+// several.  12 terms measured fastest of 4, 8, 12 and 16 (16 spills at the
+// stream's 128 registers; tools/dequant_probe.py).  Products and sums are
+// rounded on their own in the same order, so w is unchanged to the bit.
+constexpr int kCollapseBatch = 12;
+
 __device__ __forceinline__ void collapse_row(const float* __restrict__ A,
                                              const float* __restrict__ tau_up,
                                              const float* __restrict__ tau_dd,
                                              const float* __restrict__ scale,
                                              float* __restrict__ w, int n, float inv_n) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float sj = scale ? __ldg(scale + j) : 1.0f;
     float s = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const float m = __fmul_rn(A[i * n + j], tau_dd[j * n + i]);
-      s = __fadd_rn(s, __fmul_rn(tau_up[i], m));
+    for (int i0 = 0; i0 < n; i0 += kCollapseBatch) {
+      float a[kCollapseBatch], t[kCollapseBatch], u[kCollapseBatch];
+#pragma unroll
+      for (int r = 0; r < kCollapseBatch; ++r) {
+        const int i = i0 + r;
+        if (i < n) {
+          a[r] = __ldg(A + static_cast<int64_t>(i) * n + j);
+          t[r] = __ldg(tau_dd + static_cast<int64_t>(j) * n + i);
+          u[r] = __ldg(tau_up + i);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kCollapseBatch; ++r)
+        if (i0 + r < n) s = __fadd_rn(s, __fmul_rn(u[r], __fmul_rn(a[r], t[r])));
     }
     s = __fmul_rn(s, inv_n);
-    w[j] = scale ? __fmul_rn(s, scale[j]) : s;
+    w[j] = scale ? __fmul_rn(s, sj) : s;
   }
 }
 
@@ -110,35 +146,16 @@ fused_dequant_kernel(const float* __restrict__ A, const float* __restrict__ tau_
   });
 }
 
-// One segment of the round: its (n, d) stack, rows contiguous, and its first
-// column in out.
-struct RowSegment {
-  const void* x;
-  int64_t d;
-  int64_t off;
-  int32_t first_block;
-  int32_t vec;  // rows 16-byte aligned: the 16-byte path
-};
-
-struct RowSegments {
-  int32_t count;
-  int64_t cols;
-  RowSegment seg[kMaxSegments];
-};
-
-// The weight row is given: it is read through the cache, not staged.
+// Kernel 2 over a round's segment list (common.cuh's segment_rows).
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 row_stream_kernel(const float* __restrict__ w, float* __restrict__ out, int n,
                   const __grid_constant__ RowSegments tab) {
-  const RowSegment& s = tab.seg[find_segment(tab)];
-  const T* x = static_cast<const T*>(s.x);
-  const int64_t block = static_cast<int64_t>(blockIdx.x) - s.first_block;
-  if (s.vec)
-    weighted_rows<T, V>(w, x, out + s.off, n, s.d, tab.cols, block, [] {});
-  else
-    weighted_rows<T, 1>(w, x, out + s.off, n, s.d, tab.cols, block, [] {});
+  segment_rows<T, V>(w, out, n, tab);
 }
+
+// An empty kernel: what a lone launch of a grid costs in the timing harness.
+__global__ void __launch_bounds__(kThreads) launch_floor_kernel() {}
 
 template <typename T>
 cudaError_t launch_fused(const float* A, const float* tau_up, const float* tau_dd,
@@ -167,28 +184,36 @@ template <typename T>
 cudaError_t launch_row_stream(const float* w, const int64_t* table, int count, float* out,
                               int n, int64_t block_d, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  if (count < 1 || count > kMaxSegments) return cudaErrorInvalidValue;
   RowSegments tab{};
-  tab.count = count;
-  int64_t total = 0;
-  bool any_vec = false;
-  for (int s = 0; s < count; ++s) {
-    RowSegment& e = tab.seg[s];
-    e.x = reinterpret_cast<const void*>(table[2 * s]);
-    e.d = table[2 * s + 1];
-    e.off = total;
-    e.vec = rows_aligned<T>(e.x, e.d);
-    any_vec = any_vec || e.vec;
-    total += e.d;
-  }
-  // the stream's width over the total columns, for a card that holds
-  // `resident` blocks less one partial block a segment
-  const int64_t resident = resident_blocks((const void*)row_stream_kernel<T, V>, 0);
-  const int64_t blocks = place_segments(
-      tab, stream_cols(total, block_d, any_vec ? V : 1, resident > count ? resident - count
-                                                                          : resident));
+  const int64_t blocks =
+      place_row_segments<T>(tab, table, count, block_d, (const void*)row_stream_kernel<T, V>);
+  if (blocks < 1) return cudaErrorInvalidValue;
   row_stream_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(w, out, n, tab);
   return cudaGetLastError();
+}
+
+// Kernel 6's int8 columns a thread on the 16-byte path: one 16-byte word a row.
+constexpr int kDequantV = 16;
+
+// The 16-byte path's grid: {blocks, columns a block, columns a thread,
+// blocks an SM holds, SMs}.  The row stream's rule (stream_cols): at the
+// main path's stack some SMs get two blocks and others one, and grids in
+// which every SM streams the same bytes measured no faster
+// (tools/dequant_probe.py).
+void dequant_geometry(int n, int64_t d, int64_t block_d, int64_t (&g)[5]) {
+  const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  const int64_t resident =
+      resident_blocks((const void*)fused_dequant_kernel<kDequantV>, smem);
+  int dev = 0, sms = 1;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    sms = 1;
+  const int64_t cols = stream_cols(d, block_d, kDequantV, resident);
+  g[0] = (d + cols - 1) / cols;
+  g[1] = cols;
+  g[2] = kDequantV;
+  g[3] = resident / sms;
+  g[4] = sms;
 }
 
 cudaError_t launch_dequant(const float* A, const float* tau_up, const float* tau_dd,
@@ -196,10 +221,10 @@ cudaError_t launch_dequant(const float* A, const float* tau_up, const float* tau
                            int64_t block_d, float inv_n, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
   if (rows_aligned<int8_t>(q, d)) {
-    const int64_t cols = stream_cols(
-        d, block_d, 16, resident_blocks((const void*)fused_dequant_kernel<16>, smem));
-    fused_dequant_kernel<16><<<stream_grid(d, cols), kThreads, smem, stream>>>(
-        A, tau_up, tau_dd, scale, q, out, n, d, cols, inv_n);
+    int64_t g[5];
+    dequant_geometry(n, d, block_d, g);
+    fused_dequant_kernel<kDequantV><<<static_cast<unsigned>(g[0]), kThreads, smem, stream>>>(
+        A, tau_up, tau_dd, scale, q, out, n, d, g[1], inv_n);
   } else {
     const int64_t cols = stream_cols(
         d, block_d, 1, resident_blocks((const void*)fused_dequant_kernel<1>, smem));
@@ -242,6 +267,23 @@ extern "C" int repro_fused_dequant_aggregate(const float* A, const float* tau_up
                                              int64_t block_d, float inv_n, void* stream) {
   return launch_dequant(A, tau_up, tau_dd, scale, q, out, n, d, block_d, inv_n,
                         static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 6's grid on the 16-byte path for an (n, d) stack, written to
+// out[5]: blocks, columns a block, columns a thread, blocks an SM holds, SMs.
+extern "C" int repro_fused_dequant_grid(int n, int64_t d, int64_t block_d, int64_t* out) {
+  int64_t g[5];
+  dequant_geometry(n, d, block_d, g);
+  for (int k = 0; k < 5; ++k) out[k] = g[k];
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel of `blocks` blocks of kThreads: the timing harness's floor
+// for a lone launch of that grid.
+extern "C" int repro_launch_floor(int64_t blocks, void* stream) {
+  launch_floor_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* repro_error_string(int err) {

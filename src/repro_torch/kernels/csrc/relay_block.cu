@@ -6,8 +6,10 @@
 //   block_fused_aggregate_pallas (pallas_call at line 137) -> block_collapse_kernel,
 //                                                              then block_stream_kernel
 //     out = (1/n) sum_c tau_up_c @ ((A_c * tau_c^T) @ X_c)        (d,) f32
-//   block_row_stream_pallas     (pallas_call at line 190) -> block_stream_kernel
+//   block_row_stream_pallas     (pallas_call at line 190) -> block_stream_kernel,
+//                                                              and block_row_segments_kernel
 //     out = sum_c w_c @ X_c                                        (d,) f32
+//     (one segment, or a round's segment list in one launch)
 // and of src/repro/kernels/relay_mix.py:
 //   relay_mix_pallas            (pallas_call at line 54)  -> relay_mix_kernel<T, true>
 //     out = M @ X with the (n, n) mask M given: the C = 1 case of the first.
@@ -40,7 +42,18 @@
 //   it start at once (griddepcontrol.launch_dependents), and each stream
 //   block requests its first X loads before griddepcontrol.wait, which
 //   returns once the collapse has finished and its w is visible.  Kernel 9
-//   launches the same stream on its own, and the wait returns at once.
+//   launches the same stream on its own for one segment, and the wait
+//   returns at once.
+// * One launch a round for kernel 9.  The segmented clustered path streams
+//   a round's 61 cifar_cnn_full leaves (10 to 36,864 columns, at most
+//   1.5 MB each at n = 10); launched one by one, each paid ~6 us of launch,
+//   ramp and tail.  block_row_segments_kernel takes the round's segment
+//   list as common.cuh's segment table and runs kernel 2's grouped body
+//   (segment_rows) with the (C, m) rows laid end to end as one (n,) row,
+//   read through the cache, so n = 16,384 runs.  Each output column depends
+//   on its own input column only, so the grouped launch equals the
+//   per-segment kernel, kernel 8 and, at C = 1, the grouped kernel 2 to
+//   the bit.
 // * The streaming pass is the row reduction of kernels 1-2 (common.cuh's
 //   weighted_rows): all of a thread's rows in flight before its first add,
 //   a grid sized so every block is resident at once, 16-byte loads when
@@ -116,6 +129,14 @@ block_stream_kernel(const float* __restrict__ w, const T* __restrict__ x,
                     float* __restrict__ out, int n, int64_t d, int64_t cols) {
   weighted_rows<T, V>(w, x, out, n, d, cols, blockIdx.x,
                       [] { asm volatile("griddepcontrol.wait;" ::: "memory"); });
+}
+
+// Kernel 9 over a round's segment list (common.cuh's segment_rows).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+block_row_segments_kernel(const float* __restrict__ w, float* __restrict__ out, int n,
+                          const __grid_constant__ RowSegments tab) {
+  segment_rows<T, V>(w, out, n, tab);
 }
 
 // -- the relay mixes (kernels 3 and 7) ----------------------------------------
@@ -325,6 +346,21 @@ cudaError_t launch_stream(const float* w, const void* x, float* out, int n, int6
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// table: count rows of (x pointer, d); the segments' outputs follow each
+// other in out.
+template <typename T>
+cudaError_t launch_block_segments(const float* w, const int64_t* table, int count, float* out,
+                                  int n, int64_t block_d, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  RowSegments tab{};
+  const int64_t blocks = place_row_segments<T>(tab, table, count, block_d,
+                                               (const void*)block_row_segments_kernel<T, V>);
+  if (blocks < 1) return cudaErrorInvalidValue;
+  block_row_segments_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      w, out, n, tab);
+  return cudaGetLastError();
+}
+
 // One wave: the card's resident blocks shared out among the clusters, each
 // block's columns a whole number of a warp's passes (32 * V), so that the
 // blocks spread evenly over the SMs (a thread may make one pass more than
@@ -404,6 +440,18 @@ extern "C" int repro_block_row_stream(const float* w, const void* x, float* out,
   switch (dtype) {
     case kF32: return launch_stream<float>(w, x, out, n, d, block_d, false, s);
     case kBF16: return launch_stream<__nv_bfloat16>(w, x, out, n, d, block_d, false, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// w: the (C, m) rows flattened to (n,); table: count rows of (x pointer, d).
+extern "C" int repro_block_row_stream_segments(const float* w, const int64_t* table, int count,
+                                               float* out, int n, int64_t block_d, int dtype,
+                                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return launch_block_segments<float>(w, table, count, out, n, block_d, s);
+    case kBF16: return launch_block_segments<__nv_bfloat16>(w, table, count, out, n, block_d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

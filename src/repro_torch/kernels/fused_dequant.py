@@ -22,9 +22,15 @@ The kernel lives in ``csrc/fused_aggregate.cu`` beside the kernel it
 extends.  The plain version folds and sums in the kernel's order, so the
 two agree to the bit, and the segment path gives exactly the columns of
 the monolithic one.
+
+Two readings for its timing: :func:`dequant_grid`, the grid the kernel
+takes for an (n, d) stack, and :func:`launch_floor_cuda`, an empty kernel
+of a given grid (what a lone launch costs the timing harness).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,6 +48,8 @@ __all__ = [
     "fold_dequant_scales",
     "fused_dequant_aggregate_plain",
     "fused_dequant_aggregate_cuda",
+    "dequant_grid",
+    "launch_floor_cuda",
 ]
 
 
@@ -85,3 +93,26 @@ def fused_dequant_aggregate_cuda(A: torch.Tensor, tau_up: torch.Tensor, tau_dd: 
 
 
 fused_dequant_aggregate_cuda.launches = 0
+
+
+def dequant_grid(n: int, d: int, *, block_d: int = 2048) -> dict:
+    """The grid :func:`fused_dequant_aggregate_cuda` takes on the card for a
+    16-byte aligned (n, d) int8 stack: blocks, columns a block, the threads
+    of a block that hold columns, blocks an SM holds, SMs, and the most and
+    fewest blocks an SM gets when the blocks are dealt out evenly."""
+    _check_block(block_d)
+    g = (ctypes.c_int64 * 5)()
+    lib = build.library()
+    _raise_on(lib.repro_fused_dequant_grid(n, d, block_d, g), lib, "dequant_grid")
+    blocks, cols, per_thread, per_sm, sms = (int(v) for v in g)
+    return dict(blocks=blocks, cols=cols, threads_with_columns=-(-cols // per_thread),
+                blocks_per_sm=per_sm, sms=sms, most_blocks_an_sm=-(-blocks // sms),
+                fewest_blocks_an_sm=blocks // sms)
+
+
+def launch_floor_cuda(blocks: int) -> None:
+    """An empty kernel of ``blocks`` blocks of 256 threads on the current
+    stream: the timing harness's floor for a lone launch of that grid."""
+    lib = build.library()
+    _raise_on(lib.repro_launch_floor(blocks, torch.cuda.current_stream().cuda_stream), lib,
+              "launch_floor")

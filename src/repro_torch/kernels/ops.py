@@ -22,8 +22,9 @@ The memory functions update the replay buffer they are given in place
 
 The ``block_*`` functions are the clustered twins: the relay weights and
 the D2D realizations come as ``(C, m, m)`` blocks, the per-round operand
-is :func:`block_collapsed_weight_row`, and the dense (n, n) mask never
-exists (see :mod:`repro_torch.kernels.relay_block`).
+is :func:`block_collapsed_weight_row`, the segments stream through
+:func:`block_row_stream_segments` in one launch a round, and the dense
+(n, n) mask never exists (see :mod:`repro_torch.kernels.relay_block`).
 
 :func:`flash_attention` is the model zoo's causal self-attention over
 ``(B, T, H, D)`` (see :mod:`repro_torch.kernels.flash_attention`), and
@@ -63,6 +64,7 @@ __all__ = [
     "block_collapsed_weight_row",
     "block_fused_aggregate",
     "block_row_stream",
+    "block_row_stream_segments",
     "flash_attention",
     "ssd_scan",
 ]
@@ -186,6 +188,16 @@ def block_row_stream(w: torch.Tensor, segment: torch.Tensor, *,
     if _on_cpu(segment):
         return rb.block_row_stream_plain(w, segment)
     return rb.block_row_stream_cuda(w, segment, block_d=block_d)
+
+
+def block_row_stream_segments(w: torch.Tensor, segments, *,
+                              block_d: int = 2048) -> torch.Tensor:
+    """A round's blocked PS-delta columns ``sum_c w_c @ segment_c`` over its
+    list of (n, d_i) segments (one dtype: f32 or bf16), one launch on the
+    card: (sum d_i,) f32, segment after segment."""
+    if _on_cpu(segments[0]):
+        return rb.block_row_stream_segments_plain(w, segments)
+    return rb.block_row_stream_segments_cuda(w, segments, block_d=block_d)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

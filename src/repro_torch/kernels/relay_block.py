@@ -18,6 +18,12 @@ never exists:
 * :func:`block_row_stream_cuda` for ``block_row_stream_pallas`` —
   ``sum_c w_c @ segment_c`` for one ``(n, d_i)`` leaf segment with the
   ``(C, m)`` rows given, so the monolithic stack never has to exist.
+* :func:`block_row_stream_segments_cuda` — the same function over a
+  round's whole segment list in one launch, writing one ``(d,)`` row: the
+  segmented clustered path makes one launch a round where it made one per
+  leaf.  It runs kernel 2's grouped body with the ``(C, m)`` rows laid end
+  to end as one ``(n,)`` row, at any n (at most
+  :data:`~repro_torch.kernels.fused_aggregate.MAX_SEGMENTS` segments).
 
 The kernels live in ``csrc/relay_block.cu`` (design and bound in its
 header); the dense ``relay_mix`` shares its mix kernel
@@ -30,19 +36,25 @@ The plain versions run the kernels' arithmetic in the kernels' order:
 the collapse sums over i in order, the stream over rows in global order
 (clusters laid end to end), the mix over j in order, each product and sum
 rounded on its own.  So kernel and plain version agree to the bit, a
-per-segment pass gives exactly the columns of the monolithic one, and at
-C = 1 the aggregation is the dense ``fused_aggregate`` to the bit.
+per-segment pass gives exactly the columns of the monolithic one, the
+grouped plain version is the per-segment loop, and at C = 1 the
+aggregation is the dense ``fused_aggregate`` to the bit.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_aggregate import (
     _check_block,
+    _check_segments,
     _operand,
     _raise_on,
+    _same_stack,
+    _table,
     _weighted_rows,
 )
 
@@ -52,9 +64,11 @@ __all__ = [
     "block_relay_mix_plain",
     "block_fused_aggregate_plain",
     "block_row_stream_plain",
+    "block_row_stream_segments_plain",
     "block_relay_mix_cuda",
     "block_fused_aggregate_cuda",
     "block_row_stream_cuda",
+    "block_row_stream_segments_cuda",
 ]
 
 # element type codes of csrc/relay_block.cu
@@ -111,6 +125,13 @@ def block_fused_aggregate_plain(Ab: torch.Tensor, tau_up: torch.Tensor,
 def block_row_stream_plain(w: torch.Tensor, segment: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`block_row_stream_cuda`: (d_i,) f32."""
     return _weighted_rows(w.float().reshape(-1), segment)
+
+
+def block_row_stream_segments_plain(w: torch.Tensor, segments: Sequence[torch.Tensor]
+                                    ) -> torch.Tensor:
+    """Plain version of :func:`block_row_stream_segments_cuda`: the
+    per-segment rows one after another, (sum d_i,) f32."""
+    return torch.cat([block_row_stream_plain(w, s) for s in segments])
 
 
 # -- the CUDA wrappers -------------------------------------------------------
@@ -215,3 +236,40 @@ def block_row_stream_cuda(w: torch.Tensor, segment: torch.Tensor, *,
 
 
 block_row_stream_cuda.launches = 0
+
+
+def block_row_stream_segments_cuda(w: torch.Tensor, segments: Sequence[torch.Tensor], *,
+                                   block_d: int = 2048) -> torch.Tensor:
+    """A round's blocked PS-delta columns ``sum_c w_c @ segment_c`` in one
+    launch: (C, m) rows and a list of (n, d_i) contiguous CUDA segments of
+    one dtype (f32 or bf16), n = C*m; returns the (sum d_i,) f32 row,
+    segment after segment."""
+    what = "block_row_stream_segments"
+    segments = list(segments)
+    if w.ndim != 2:
+        raise ValueError(f"{what}: needs (C, m) weight rows, got {tuple(w.shape)}")
+    _check_segments(segments, what)
+    for seg in segments:
+        _same_stack(seg, segments[0], what)
+    n = w.shape[0] * w.shape[1]
+    if segments[0].shape[0] != n:
+        raise ValueError(f"{what}: the weight rows give C*m = {n} clients, the segments "
+                         f"have n = {segments[0].shape[0]}")
+    for seg in segments:
+        check_stack(seg, n, what)
+    _check_block(block_d)
+    dev = segments[0].device
+    wf = _operand(w, tuple(w.shape), dev, "w")
+    out = torch.empty(sum(s.shape[1] for s in segments), dtype=torch.float32, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.repro_block_row_stream_segments(
+            wf.data_ptr(), _table((s.data_ptr(), s.shape[1]) for s in segments), len(segments),
+            out.data_ptr(), n, block_d, DTYPE_CODES[segments[0].dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, what)
+    block_row_stream_segments_cuda.launches += 1
+    return out
+
+
+block_row_stream_segments_cuda.launches = 0

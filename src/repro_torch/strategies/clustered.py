@@ -18,9 +18,9 @@ Execution options mirror ``ColRelStrategy``:
   blocked effective weights, per leaf.
 * ``fused="kernel"`` — flatten once and stream the ``(n, d)`` stack
   through the blocked aggregation kernel in one pass; with
-  ``ctx.use_segments(d)`` each per-leaf ``(n, d_i)`` segment streams
-  through the blocked row kernel against the ``(C, m)`` rows collapsed
-  once instead.
+  ``ctx.use_segments(d)`` the per-leaf ``(n, d_i)`` segments stream
+  through one launch of the blocked row kernel a round against the
+  ``(C, m)`` rows collapsed once instead.
 
 With C = 1 the kernel and segment paths are ``colrel``'s to the bit.
 """
@@ -79,13 +79,13 @@ class ClusteredColRelStrategy(AggregationStrategy):
             spec = flatten.flat_spec(deltas, stacked=True)
             if ctx.use_segments(spec.d):
                 # segment streaming: collapse the per-cluster weight rows
-                # once, stream each (n, d_i) leaf segment through its own
-                # blocked pass and reshape each partial delta to its leaf
+                # once and stream the (n, d_i) leaf segments through one
+                # blocked launch; the leaves are views of its (d,) delta
                 w = kernel_ops.block_collapsed_weight_row(A, tau_up, tau_dd)
                 segments = flatten.ravel_stacked_segments(deltas, dtype=ctx.flat_dtype)
-                leaves = [kernel_ops.block_row_stream(w, seg, block_d=ctx.fused_block_d)
-                          .reshape(shape) for seg, shape in zip(segments, spec.shapes)]
-                return tree.unflatten(spec.treedef, leaves), state
+                gflat = kernel_ops.block_row_stream_segments(w, segments,
+                                                             block_d=ctx.fused_block_d)
+                return flatten.unravel(spec, gflat, dtype=torch.float32), state
             stack = flatten.ravel_stacked(deltas, dtype=ctx.flat_dtype)
             gflat = kernel_ops.block_fused_aggregate(A, tau_up, tau_dd, stack,
                                                      block_d=ctx.fused_block_d)

@@ -1,6 +1,7 @@
 """CPU tests of the measures that hold kernel 11 on the card: the relative-L2
 readings of ``chip_smoke.py`` and the hi-only copies of
-``tools/ssd_split_probe.py`` that set their limit."""
+``tools/ssd_split_probe.py`` that set their limit; and of the candidate
+copies of kernel 6 that ``tools/dequant_probe.py`` times."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 import chip_smoke as cs  # noqa: E402
+import dequant_probe  # noqa: E402
 import ssd_split_probe as probe  # noqa: E402
 
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -57,6 +59,20 @@ def test_ssd_split_probe_cuts_one_split_of_the_kernel(tmp_path, cut):
     assert edited.replace(probe.HI_ONLY, "").replace("split2_hi(", "split2(") == source
     for other in set(probe.CUTS) - {cut}:
         assert edited.count(probe.CUTS[other]) == source.count(probe.CUTS[other])
+
+
+@pytest.mark.parametrize("label", sorted(dequant_probe.CANDIDATES))
+def test_dequant_probe_copies_differ_from_the_source_by_their_edits_only(tmp_path, label):
+    source = (CSRC / "fused_aggregate.cu").read_text()
+    src = dequant_probe.copy_with_edits(tmp_path, label)
+    edited = (src / "repro_torch" / "kernels" / "csrc" / "fused_aggregate.cu").read_text()
+    for old, new in dequant_probe.CANDIDATES[label]:
+        assert source.count(old) == 1 and edited.count(new) >= 1
+        edited = edited.replace(new, old)
+    assert edited == source
+    for other in ("common.cuh", "relay_block.cu", "fused_memory.cu"):
+        assert (src / "repro_torch" / "kernels" / "csrc" / other).read_text() == \
+            (CSRC / other).read_text()
 
 
 def test_mix_and_ssd_byte_counts():

@@ -49,6 +49,7 @@ from repro_torch.core.weights import (
 )
 from repro_torch.fl.experiment import ExperimentSpec, build_experiment, build_task
 from repro_torch.fl.trainer import FLTrainer
+from repro_torch.kernels import ops as kernel_ops
 
 ROUNDS = 2
 
@@ -231,6 +232,35 @@ def test_clustered_tracks_reference(reference, problem, fused, segment_d):
     np.testing.assert_allclose(log.weight_sums, jlog.weight_sums, rtol=0, atol=1e-6)
     np.testing.assert_allclose(log.loss, jlog.loss, rtol=1e-5, atol=0)
     assert tree.paths(tr.params) == tree.paths(jfinal)
+    for got, want in zip(tree.leaves(tr.params), tree.leaves(jfinal)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("problem", ["quadratic", "cifar_cnn"])
+def test_clustered_segmented_path_makes_one_grouped_call_a_round(reference, problem,
+                                                                 monkeypatch):
+    """The segmented kernel path streams each round's leaf segments through
+    one ``block_row_stream_segments`` call (one launch on the card), not one
+    ``block_row_stream`` per leaf, and still tracks the reference run."""
+    inputs, jlog, jfinal = reference(problem)
+    calls, per_leaf = [], []
+    grouped, single = kernel_ops.block_row_stream_segments, kernel_ops.block_row_stream
+
+    def counted(w, segments, **kw):
+        calls.append(len(segments))
+        return grouped(w, segments, **kw)
+
+    def counted_leaf(w, segment, **kw):
+        per_leaf.append(segment.shape)
+        return single(w, segment, **kw)
+
+    monkeypatch.setattr(kernel_ops, "block_row_stream_segments", counted)
+    monkeypatch.setattr(kernel_ops, "block_row_stream", counted_leaf)
+    tr = _port_run(inputs, strategies.get("clustered", fused="kernel"), segment_d=1)
+    assert calls == [len(jax.tree.leaves(inputs["init"]))] * ROUNDS
+    assert per_leaf == []
+    assert tr.log.participation == jlog.participation
+    np.testing.assert_allclose(tr.log.loss, jlog.loss, rtol=1e-5, atol=0)
     for got, want in zip(tree.leaves(tr.params), tree.leaves(jfinal)):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 

@@ -6,9 +6,10 @@ Tolerance atol 1e-5 + rtol 1e-5 (f32 accumulation, and bf16/int8 widened
 exactly to f32).  The kernels run the plain versions' arithmetic in the
 same order, so in practice they agree to the bit; segmented memory runs
 are held to the monolithic kernel at 0.  The grouped kernels (one launch
-over a round's segment list, kernels 2 and 5) are held bitwise to their
+over a round's segment list, kernels 2, 5 and 9) are held bitwise to their
 plain versions, to the per-segment kernels and to the monolithic kernels
-(kernel 1 or 6 for kernel 2, kernel 4 for kernel 5).  The clustered kernels and the
+(kernel 1 or 6 for kernel 2, kernel 4 for kernel 5, kernel 8 for kernel 9);
+kernels 1 and 6 bitwise to their plain versions from n = 1 to 4096.  The clustered kernels and the
 dense relay mix are held to their plain versions, to the dense kernels at
 C = 1 and segments to the monolithic pass, all bitwise.  Causal flash
 attention is held to its plain version (the dense softmax) at atol = rtol
@@ -285,6 +286,118 @@ def test_grouped_wrappers_reject_what_the_kernels_do_not_take(dev):
         fm.memory_stream_segments_cuda(mix, tu, [seg.double(), seg.double()], buf)
     with pytest.raises(ValueError, match="contiguous"):
         fa.row_stream_segments_cuda(w, [torch.zeros(4, 32, device=dev)[:, ::2]])
+
+
+# -- kernel 9 over a round's segment list -------------------------------------
+
+@pytest.mark.parametrize("C,m", [(2, 5), (3, 4), (1, 1)], ids=lambda v: str(v))
+@pytest.mark.parametrize("widths", sorted(SEGMENT_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_row_stream_segments_kernel_matches_plain_bitwise(dev, C, m, widths, dtype):
+    """Grouped kernel 9 against its plain version, the per-segment kernel 9
+    and kernel 8, bitwise; one count a call."""
+    widths = SEGMENT_WIDTHS[widths]
+    Ab, tau_up, tau_b, X = _blocks(C, m, sum(widths), dtype, dev, seed=C * m + len(widths))
+    w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+    segments = [s.contiguous() for s in X.split(list(widths), dim=1)]
+    before = rb.block_row_stream_segments_cuda.launches
+    got = rb.block_row_stream_segments_cuda(w, segments)
+    torch.cuda.synchronize()
+    assert rb.block_row_stream_segments_cuda.launches == before + 1
+    assert got.shape == (sum(widths),) and got.dtype == torch.float32
+    assert torch.equal(got, rb.block_row_stream_segments_plain(w, segments))
+    assert torch.equal(got, torch.cat([rb.block_row_stream_cuda(w, s) for s in segments]))
+    assert torch.equal(got, rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X))
+
+
+@pytest.mark.parametrize("n", [1, 4, 10, 33])
+@pytest.mark.parametrize("widths", sorted(SEGMENT_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_row_stream_segments_at_one_cluster_equal_grouped_kernel_2(dev, n, widths, dtype):
+    widths = SEGMENT_WIDTHS[widths]
+    A, tau_up, tau_dd, X = _round(n, sum(widths), dtype, dev, seed=3 * n + len(widths))
+    w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+    segments = [s.contiguous() for s in X.split(list(widths), dim=1)]
+    assert torch.equal(rb.block_row_stream_segments_cuda(w.reshape(1, n), segments),
+                       fa.row_stream_segments_cuda(w, segments))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_row_stream_segments_at_population_scale(dev, dtype):
+    """n = 16,384 as C = 256 clusters of m = 64, past the dense kernels'
+    4096: the weight row is read through the cache."""
+    widths = SEGMENT_WIDTHS["off_grid"]
+    Ab, tau_up, tau_b, X = _blocks(256, 64, sum(widths), dtype, dev, seed=16)
+    w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+    segments = [s.contiguous() for s in X.split(list(widths), dim=1)]
+    got = rb.block_row_stream_segments_cuda(w, segments)
+    assert torch.equal(got, rb.block_row_stream_segments_plain(w, segments))
+    assert torch.equal(got, rb.block_fused_aggregate_cuda(Ab, tau_up, tau_b, X))
+
+
+def test_block_row_stream_segments_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    seg, w = torch.zeros(10, 16, device=dev), torch.ones(2, 5, device=dev)
+    before = rb.block_row_stream_segments_cuda.launches
+    for other in (seg.to(torch.bfloat16), torch.zeros(12, 16, device=dev), seg.cpu()):
+        with pytest.raises(ValueError, match="share the first one's device, dtype and n"):
+            rb.block_row_stream_segments_cuda(w, [seg, other])
+    with pytest.raises(ValueError, match="C\\*m = 12"):
+        rb.block_row_stream_segments_cuda(torch.ones(3, 4, device=dev), [seg, seg])
+    with pytest.raises(ValueError, match=f"1 to {fa.MAX_SEGMENTS} segments"):
+        rb.block_row_stream_segments_cuda(w, [seg] * (fa.MAX_SEGMENTS + 1))
+    with pytest.raises(TypeError):
+        rb.block_row_stream_segments_cuda(w, [seg.to(torch.int8), seg.to(torch.int8)])
+    with pytest.raises(ValueError, match="contiguous"):
+        rb.block_row_stream_segments_cuda(w, [torch.zeros(10, 32, device=dev)[:, ::2]])
+    with pytest.raises(ValueError, match="w: on cpu"):
+        rb.block_row_stream_segments_cuda(w.cpu(), [seg])
+    assert rb.block_row_stream_segments_cuda.launches == before
+
+
+# -- the collapse of kernels 1 and 6 -------------------------------------------
+
+# n across the collapse's load batches (16 terms): one term, one batch, a
+# batch and one, the main path's 10, and the wrappers' largest n
+COLLAPSE_NS = [1, 4, 10, 16, 17, 33, 4096]
+
+
+@pytest.mark.parametrize("n", COLLAPSE_NS)
+@pytest.mark.parametrize("d", [272282, 272281, 4099])
+def test_fused_dequant_kernel_equals_plain_bitwise_at_every_block_d(dev, n, d):
+    """Kernel 6 against its plain version, bitwise, on the 16-byte path
+    (d = 272,282) and the scalar one, at block_d 16, 2048 and 2^20."""
+    if n == 4096:  # both paths at n = 4096 without a 1 GB stack
+        d = {272282: 16 * 4099, 272281: 16 * 4099 + 1}.get(d, d)
+    A, tau_up, tau_dd, q = _round(n, d, torch.int8, dev, seed=n + d)
+    scale = torch.rand(n, 1, generator=torch.Generator().manual_seed(n)).to(dev) / 40
+    want = fdq.fused_dequant_aggregate_plain(A, tau_up, tau_dd, q, scale)
+    for b in (16, 2048, 1 << 20):
+        assert torch.equal(fdq.fused_dequant_aggregate_cuda(A, tau_up, tau_dd, q, scale,
+                                                            block_d=b), want)
+
+
+@pytest.mark.parametrize("n", COLLAPSE_NS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_aggregate_kernel_equals_plain_bitwise_across_the_collapse(dev, n, dtype):
+    """Kernel 1 takes kernel 6's collapse: bitwise against its plain
+    version on the 16-byte path and the scalar one."""
+    for d in (4096, 4099):
+        A, tau_up, tau_dd, X = _round(n, d, dtype, dev, seed=2 * n + d)
+        assert torch.equal(fa.fused_aggregate_cuda(A, tau_up, tau_dd, X),
+                           fa.fused_aggregate_plain(A, tau_up, tau_dd, X))
+
+
+def test_dequant_grid_is_the_launched_grid(dev):
+    """The grid kernel 6 reports for the main path's stack: every block
+    resident at once, columns a whole number of 16-byte words, at most
+    block_d; an empty kernel of that grid launches."""
+    g = fdq.dequant_grid(10, 272282)
+    assert g["cols"] % 16 == 0 and g["cols"] <= 2048
+    assert g["blocks"] == -(-272282 // g["cols"])
+    assert g["blocks"] <= g["blocks_per_sm"] * g["sms"]
+    assert fdq.dequant_grid(10, 272282, block_d=16)["cols"] == 16
+    fdq.launch_floor_cuda(g["blocks"])
+    torch.cuda.synchronize()
 
 
 # -- the clustered kernels and the dense relay mix ----------------------------

@@ -381,6 +381,103 @@ def test_block_cuda_wrappers_refuse_cpu_tensors():
                                 torch.zeros(111, 4))
 
 
+# -- kernel 9 over a round's segment list --------------------------------------
+
+BLOCK_SEGMENT_CLUSTERINGS = [(2, 5), (3, 4)]  # C, m
+
+
+@pytest.mark.parametrize("C,m", BLOCK_SEGMENT_CLUSTERINGS, ids=lambda v: str(v))
+@pytest.mark.parametrize("widths", sorted(SEGMENT_WIDTHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_row_stream_segments_equal_per_segment_and_monolithic_bitwise(C, m, widths, dtype):
+    """The grouped plain version of kernel 9 against the per-segment passes
+    and kernel 8's plain version, through the CPU dispatch."""
+    widths = SEGMENT_WIDTHS[widths]
+    Ab, tau_up, tau_b, X = (torch.from_numpy(a)
+                            for a in _block_inputs(C, m, sum(widths), seed=C * m + len(widths)))
+    x = X.to(getattr(torch, dtype))
+    segments = _segments_of(x, widths)
+    w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+    got = ops.block_row_stream_segments(w, segments)
+    assert got.shape == (sum(widths),) and got.dtype == torch.float32
+    assert torch.equal(got, rb.block_row_stream_segments_plain(w, segments))
+    assert torch.equal(got, torch.cat([ops.block_row_stream(w, s) for s in segments]))
+    assert torch.equal(got, ops.block_fused_aggregate(Ab, tau_up, tau_b, x))
+
+
+@pytest.mark.parametrize("C,m", BLOCK_SEGMENT_CLUSTERINGS, ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_row_stream_segments_plain_matches_pallas(C, m, dtype):
+    """Each segment of the grouped plain version against the reference's
+    ``block_row_stream_pallas`` in interpret mode on that segment."""
+    widths = (1, 10, 37)
+    Ab, tau_up, tau_b, X = _block_inputs(C, m, sum(widths), seed=C * 10 + m)
+    xj, xt = _stack(X, dtype)
+    w = rb.block_collapsed_weight_row(*(torch.from_numpy(v) for v in (Ab, tau_up, tau_b)))
+    got = rb.block_row_stream_segments_plain(w, _segments_of(xt, widths))
+    off = 0
+    for d in widths:
+        want = block_row_stream_pallas(jnp.asarray(w.numpy()), xj[:, off:off + d], block_d=16,
+                                       interpret=True)
+        np.testing.assert_allclose(got[off:off + d].numpy(), np.asarray(want),
+                                   **(F32_TOL if dtype == "float32" else BF16_TOL))
+        off += d
+
+
+@pytest.mark.parametrize("widths", sorted(SEGMENT_WIDTHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_row_stream_segments_at_one_cluster_are_the_dense_grouped_ones_bitwise(widths,
+                                                                                    dtype):
+    widths = SEGMENT_WIDTHS[widths]
+    A, tau_up, tau_dd, X = (torch.from_numpy(a)
+                            for a in _round_inputs(10, sum(widths), seed=len(widths)))
+    segments = _segments_of(X.to(getattr(torch, dtype)), widths)
+    w = ops.collapsed_weight_row(A, tau_up, tau_dd)
+    assert torch.equal(ops.block_row_stream_segments(w.reshape(1, 10), segments),
+                       ops.row_stream_segments(w, segments))
+
+
+def test_block_row_stream_segments_on_the_cpu_launch_nothing():
+    wrappers = (rb.block_row_stream_cuda, rb.block_row_stream_segments_cuda,
+                fa.row_stream_segments_cuda)
+    before = [f.launches for f in wrappers]
+    for f in wrappers:
+        f.launches = 0
+    try:
+        Ab, tau_up, tau_b, X = (torch.from_numpy(a) for a in _block_inputs(2, 5, 4108, seed=6))
+        w = ops.block_collapsed_weight_row(Ab, tau_up, tau_b)
+        ops.block_row_stream_segments(w, _segments_of(X, SEGMENT_WIDTHS["off_grid"]))
+        assert [f.launches for f in wrappers] == [0] * len(wrappers)
+    finally:
+        for f, b in zip(wrappers, before):
+            f.launches = b
+
+
+def test_block_row_stream_segments_cuda_refuses_what_the_kernel_does_not_take():
+    """Checked before any card is touched: CPU tensors, mixed dtypes, a
+    segment whose n differs, weight rows whose C*m is not the segments'
+    n, and more segments than the kernel's parameter table holds; an n
+    above the dense kernels' 4096 is taken (it reaches the device check)."""
+    seg, w = torch.zeros(10, 16), torch.ones(2, 5)
+    before = rb.block_row_stream_segments_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rb.block_row_stream_segments_cuda(w, [seg, seg])
+    for other in (seg.to(torch.bfloat16), torch.zeros(12, 16)):
+        with pytest.raises(ValueError, match="share the first one's device, dtype and n"):
+            rb.block_row_stream_segments_cuda(w, [seg, other])
+    with pytest.raises(ValueError, match=r"C\*m = 12 clients, the segments have n = 10"):
+        rb.block_row_stream_segments_cuda(torch.ones(3, 4), [seg, seg])
+    with pytest.raises(ValueError, match=r"\(C, m\) weight rows"):
+        rb.block_row_stream_segments_cuda(torch.ones(10), [seg])
+    for count in (0, fa.MAX_SEGMENTS + 1):
+        with pytest.raises(ValueError, match=f"1 to {fa.MAX_SEGMENTS} segments"):
+            rb.block_row_stream_segments_cuda(w, [seg] * count)
+    big = torch.zeros(128 * 64, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rb.block_row_stream_segments_cuda(torch.ones(128, 64), [big, big])
+    assert rb.block_row_stream_segments_cuda.launches == before
+
+
 def test_build_compiles_and_binds_every_source_and_the_package_ships_them():
     """Every ``csrc/*.cu`` is compiled, every C entry point it exports has a
     ctypes signature, and the package data carries every source and header

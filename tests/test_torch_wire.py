@@ -114,7 +114,7 @@ def test_encode_segments_scale_is_the_monolithic_scale():
     assert bool(torch.all(err < scale.expand_as(err) + 1e-9))
 
 
-@pytest.mark.parametrize("n", [4, 10, 33])
+@pytest.mark.parametrize("n", [1, 4, 10, 33])
 @pytest.mark.parametrize("d", [1, 96, 1000, 2500])
 def test_fused_dequant_plain_matches_pallas(n, d):
     x = _stack(n=n, d=d, seed=n + d)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Times of kernels 2, 3, 4, 5, 7 and 11 of the port on one CUDA card,
+"""Times of kernels 1, 2, 3, 4, 5, 6, 7, 9 and 11 of the port on one CUDA card,
 with ``chip_smoke.py``'s method, shapes, byte counts and numbers of timed
 calls (CUDA events around each call, the L2 cache flushed before it, a
 device sleep hiding the host's enqueue; the median of the calls).
@@ -24,6 +24,17 @@ kernels are built from that tree's sources at first use.  Shapes:
   whose base is one element past an 8-byte boundary, so that every column
   takes the scalar body (one column a thread) in place of the two-column
   one;
+* kernel 9 as the segmented clustered path launches it, on the same 61
+  f32 segments at n=10 as C=2 clusters of m=5: ``round`` is one grouped
+  call where the tree has ``block_row_stream_segments_cuda``, else the 61
+  per-segment calls; ``per_segment`` the 61 per-segment calls on every
+  tree;
+* kernels 1 and 6, ``fused_aggregate_cuda`` and
+  ``fused_dequant_aggregate_cuda``: n=10, d=272,282, f32 and int8 (the
+  int8 stack is X quantized at 1/40); beside kernel 6, where the tree has
+  them, an empty kernel of its grid (``floor_ms``), kernel 2 on the same
+  int8 stack with the folded row given (``no_collapse_ms``) and a device
+  copy of the stack (``copy_ms``);
 * kernel 4, ``fused_memory_update_cuda``: n=10, d=272,282 f32;
 * kernel 3, ``relay_mix_cuda``: d=2^20 f32 at n=16 (the main path's and
   ``kernels_bench.py``'s), 33 and 110 (the widest mask the kernel takes);
@@ -68,6 +79,7 @@ def main() -> int:
     from repro_torch.configs import colrel_paper
     from repro_torch.core import flatten
     from repro_torch.kernels import fused_aggregate as fa
+    from repro_torch.kernels import fused_dequant as fdq
     from repro_torch.kernels import fused_memory as fm
     from repro_torch.kernels import ops
     from repro_torch.kernels import relay_block as rb
@@ -149,6 +161,38 @@ def main() -> int:
                          "library_ms": cs.median_ms(lambda: torch.matmul(w, X), flush, 100)}
     out["row_stream_int8"] = {"round": window(rows_round(ws, q8_segs), row8_bytes),
                               "per_segment": window(rows_per_segment(ws, q8_segs), row8_bytes)}
+
+    # kernel 9 on the same f32 segments as C=2 clusters of m=5
+    wb = w.reshape(2, n // 2)
+
+    def block_per_segment():
+        return [rb.block_row_stream_cuda(wb, s) for s in segs]
+
+    def block_grouped():
+        return rb.block_row_stream_segments_cuda(wb, segs)
+
+    block_round = (block_grouped if hasattr(rb, "block_row_stream_segments_cuda")
+                   else block_per_segment)
+    out["block_row_stream"] = {"round": window(block_round, row_bytes),
+                               "per_segment": window(block_per_segment, row_bytes)}
+
+    # kernels 1 and 6 on the monolithic stacks
+    q8 = (X * 40).round().clamp(-127, 127).to(torch.int8)
+    scale = torch.full((n, 1), 1 / 40, device=dev)
+    out["fused_aggregate"] = timed(lambda: fa.fused_aggregate_cuda(A, tu, td, X),
+                                   8 * n * n + 4 * n + 4 * n * d + 4 * d, 100,
+                                   lambda: torch.matmul(w, X))
+    out["fused_dequant_aggregate"] = timed(
+        lambda: fdq.fused_dequant_aggregate_cuda(A, tu, td, q8, scale),
+        8 * n * n + 8 * n + n * d + 4 * d, 100)
+    if hasattr(fdq, "dequant_grid"):
+        grid = fdq.dequant_grid(n, d)
+        out["fused_dequant_aggregate"].update(
+            grid=grid,
+            floor_ms=cs.median_ms(lambda: fdq.launch_floor_cuda(grid["blocks"]), flush, 100),
+            no_collapse_ms=cs.median_ms(lambda: fa.row_stream_cuda(ws, q8), flush, 100),
+            copy_ms=cs.median_ms(lambda: torch.empty_like(q8).copy_(q8), flush, 100))
+    del q8
     out["fused_memory_update"] = timed(lambda: fm.fused_memory_update_cuda(A, tu, td, X, B),
                                        8 * n * n + 4 * n + 12 * n * d + 4 * d, 100)
     scalar_segs = [off_by_one(s) for s in segs]
