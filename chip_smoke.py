@@ -45,6 +45,20 @@ each of which fails the run by raising:
    clustered bursty blockage; and three rounds of the population path
    (n=1024 as 64 clusters of 16, the D=64 quadratic), kernel against
    fused=False;
+4b. the chunked engine (``run(rounds, chunk=K)``): every kernel path of
+   phase 4 (colrel kernel, segmented and collapse; memory kernel and
+   segmented; int8 quantized kernel and segmented; clustered kernel and
+   segmented; the n=1024 population) once more from the same init as one
+   chunk of three rounds, one round captured as a CUDA graph and replayed
+   three times, held bitwise to its per-round run (params, server state,
+   strategy state, per-round metrics), with its kernel launches a chunk
+   (captured a round x replays), warm-up, capture and instantiate
+   seconds, graph nodes and memory; then the colrel kernel path's s/round
+   per round and chunked (K=4) in turns, one replayed chunk under
+   torch.profiler (the device's busy share, and the aggregation kernel's
+   launches in the trace against captured x replays); and one chunk with
+   the taus drawn inside the captured round (``no_trace=True``) on the
+   static and the Markov channel;
 5. times of each kernel at the main path's shapes beside its bound, its
    plain version and one PyTorch call computing the same product where
    there is one; kernels 2, 5 and 9 as the segmented paths launch them, one
@@ -100,6 +114,7 @@ The line before the last is a JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}.
 """
 
+import ctypes
 import json
 import math
 import pathlib
@@ -118,6 +133,8 @@ F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 HIDE_HOST_CYCLES = 4_000_000  # ~2 ms of device sleep, longer than any timed call's host enqueue
 ROUNDS = 3
+# rounds a chunk of the timed chunked engine (phase 4b)
+CHUNK_K = 4
 # One aggregation of the same stacked deltas: the kernel, segmented, collapse
 # and faithful paths differ only in f32 summation order.
 AGG_ATOL = 1e-6
@@ -737,16 +754,18 @@ def main():
               f"max_abs_diff={diff:.3e} (atol {AGG_ATOL})")
     # the memory round with a carried buffer (each path gets its own copy:
     # the kernel paths update it in place), and the int8 round from one
-    # codec state (the kernel path and the dequant oracle draw the same q)
+    # codec seed (the kernel path and the dequant oracle draw the same q)
     buf0 = 1e-2 * torch.randn(n, d_full, generator=g).to(dev)
     seg_ctx = ExecutionContext(n_clients=n, segment_d=1)
     mem = {label: strategies.get("memory", fused=fused).aggregate_tree(
         deltas, tu, td, A, buf0.clone(), c)
         for label, fused, c in (("kernel", "kernel", ctx), ("segmented", "kernel", seg_ctx),
                                 ("fused=False", False, ctx))}
-    quant = {label: strategies.get("quantized", codec="int8", fused=fused).aggregate_tree(
-        deltas, tu, td, A, ((0, 0), ()), ctx)[0]
-        for label, fused in (("kernel", "kernel"), ("fused=False", False))}
+    quant = {}
+    for label, fused in (("kernel", "kernel"), ("fused=False", False)):
+        qs = strategies.get("quantized", codec="int8", fused=fused)
+        quant[label] = qs.aggregate_tree(deltas, tu, td, A, qs.init_state(n, d_full, device=dev),
+                                         ctx)[0]
     for what, label, got, want, atol in (
             ("memory delta", "segmented", mem["segmented"][0], mem["kernel"][0], 0.0),
             ("memory buffer", "segmented", [mem["segmented"][1]], [mem["kernel"][1]], 0.0),
@@ -991,6 +1010,179 @@ def main():
     check(qdiff <= 1e-5, f"quadratic params card vs cpu {qdiff}")
     print(f"[main] quadratic, card vs CPU path: losses {on_card.log.loss} vs {on_cpu.log.loss}, "
           f"params max_abs_diff={qdiff:.3e}")
+
+    # -- 4b. the chunked engine ---------------------------------------------
+    # every kernel path of phase 4 (and the collapse) once more from the same
+    # init as one chunk of ROUNDS rounds: one round captured as a CUDA graph
+    # and replayed ROUNDS times, held bitwise to the path's per-round run
+    libcuda = ctypes.CDLL("libcuda.so.1")
+
+    def graph_nodes(graph):
+        count = ctypes.c_size_t(0)
+        err = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                      ctypes.byref(count))
+        check(err == 0, f"cuGraphGetNodes returned {err}")
+        return count.value
+
+    def engine_line(scan):
+        st = scan.stats
+        return (f"warm-up {st['warmup_s']:.2f} s, capture {st['capture_s']:.2f} s, instantiate "
+                f"{st['instantiate_s']:.2f} s, {graph_nodes(scan.graph)} graph nodes, graph pool "
+                f"{st['pool_bytes'] / 1e9:.3f} GB, chunk batch and tau buffers "
+                f"{st['buffer_bytes'] / 1e9:.3f} GB")
+
+    def short(counts):
+        return {k.removesuffix("_cuda"): v for k, v in counts.items()}
+
+    def drive_chunked(label, ref, make, expect):
+        """``make()``'s path as one chunk of ROUNDS rounds, every launch count
+        set to 0 just before and read just after: the counts are the eager
+        warm-up round's plus the captured round's, and the captured round
+        launches each kernel of ``expect`` once.  Params, server state,
+        strategy state and per-round metrics equal ``ref``'s to the bit."""
+        for w_ in wrappers.values():
+            w_.launches = 0
+        exp = make()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exp.run(ROUNDS, chunk=ROUNDS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        scan = exp.trainer._scan_fn
+        st = scan.stats
+        check(scan.graph is not None and st["replays"] == ROUNDS,
+              f"{label}: the chunk did not replay a captured round")
+        counts = {k: w_.launches for k, w_ in wrappers.items() if w_.launches}
+        captured, warm = short(st["captured_launches"]), short(st["warmup_launches"])
+        check(captured == {k: 1 for k in expect} and warm == captured,
+              f"{label}: captured launches {captured}, warm-up {warm}, expected one of {expect}")
+        check(counts == {k: warm[k] + captured[k] for k in captured},
+              f"{label}: counted launches {counts} are not the warm-up's and the capture's")
+        for field in ("loss", "participation", "uplink_bits", "weight_sums"):
+            x, y = getattr(ref.log, field), getattr(exp.log, field)
+            check(len(x) == len(y) == ROUNDS and all(
+                u == v or (math.isnan(u) and math.isnan(v)) for u, v in zip(x, y)),
+                f"{label}: chunked {field} {y} differs from per-round {x}")
+        for state in ("params", "server_state", "agg_state"):
+            for a, b in zip(tree.leaves(getattr(ref.trainer, state)),
+                            tree.leaves(getattr(exp.trainer, state))):
+                same = (torch.equal(a.get_state(), b.get_state())
+                        if isinstance(a, torch.Generator) else torch.equal(a, b))
+                check(same, f"{label}: chunked {state} differs from per-round")
+        print(f"[chunk] {label}: {ROUNDS} rounds as one chunk, bitwise equal to the per-round run "
+              f"(params, server state, strategy state, loss, participation, uplink_bits, "
+              f"weight_sum); kernel launches a chunk "
+              f"{ {k: v * ROUNDS for k, v in captured.items()} } (captured {captured} a round x "
+              f"{ROUNDS} replays; the eager warm-up round {warm}); {engine_line(scan)}; "
+              f"chunk {secs:.2f} s [{card}]")
+        del exp, scan
+        torch.cuda.empty_cache()
+
+    def spec_path(strategy, options, segment_d, channel="static"):
+        return lambda: build_experiment(ExperimentSpec(
+            model="cifar_cnn_full", strategy=strategy, strategy_options=options,
+            segment_d=segment_d, channel=channel))
+
+    chunk_paths = (
+        ("colrel kernel", kernel_exp, spec_path("colrel", {"fused": "kernel"}, 0),
+         {"fused_aggregate"}),
+        ("colrel segmented", seg_exp, spec_path("colrel", {"fused": "kernel"}, 1),
+         {"row_stream_segments"}),
+        ("colrel collapse", col_exp, spec_path("colrel", {"fused": "collapse"}, 0), set()),
+        ("memory kernel", mem_exp, spec_path("memory", {"fused": "kernel"}, 0, "markov"),
+         {"fused_memory_update"}),
+        ("memory segmented", mem_seg, spec_path("memory", {"fused": "kernel"}, 1, "markov"),
+         {"memory_stream_segments"}),
+        ("quantized kernel", q_exp, spec_path("quantized", q_opts, 0),
+         {"fused_dequant_aggregate"}),
+        ("quantized segmented", q_seg, spec_path("quantized", q_opts, 1),
+         {"row_stream_segments"}),
+        ("clustered kernel", cl_runs["kernel"][0], lambda: clustered_exp(
+            "kernel", 0, ClusteredStaticChannel(cmodel, seed=0)), {"block_fused_aggregate"}),
+        ("clustered segmented", cl_runs["segmented"][0], lambda: clustered_exp(
+            "kernel", 1, ClusteredStaticChannel(cmodel, seed=0)), {"block_row_stream_segments"}),
+        ("population kernel", pop_k, lambda: population_exp("kernel"), {"block_fused_aggregate"}),
+    )
+    for label, ref, make, expect in chunk_paths:
+        drive_chunked(label, ref, make, expect)
+
+    # the colrel kernel path: s/round per round and chunked (K = CHUNK_K), in
+    # turns, after an unmeasured round and an unmeasured chunk (the capture)
+    spec_k = ExperimentSpec(model="cifar_cnn_full", strategy="colrel",
+                            strategy_options={"fused": "kernel"})
+    per_exp, ch_exp = build_experiment(spec_k), build_experiment(spec_k)
+    per_exp.run(1)
+    ch_exp.run(CHUNK_K, chunk=CHUNK_K)
+    torch.cuda.synchronize()
+
+    def per_round_s():
+        out = []
+        for _ in range(CHUNK_K):
+            t = time.perf_counter()
+            per_exp.run(1)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return out
+
+    def chunked_s():
+        t = time.perf_counter()
+        ch_exp.run(CHUNK_K, chunk=CHUNK_K)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / CHUNK_K
+
+    per_a, ch_a, ch_b, per_b = per_round_s(), chunked_s(), chunked_s(), per_round_s()
+    per_med = statistics.median(per_a + per_b)
+    print(f"[chunk] colrel kernel path s/round, in turns: per round {[round(x, 4) for x in per_a]}, "
+          f"chunked (K={CHUNK_K}) {ch_a:.4f}, {ch_b:.4f}, per round "
+          f"{[round(x, 4) for x in per_b]}; median per round {per_med:.4f} s, chunked "
+          f"{statistics.mean([ch_a, ch_b]):.4f} s ({per_med / statistics.mean([ch_a, ch_b]):.2f}x); "
+          f"{engine_line(ch_exp.trainer._scan_fn)} [{card}]")
+    # one replayed chunk under the profiler: the device's busy share, and the
+    # aggregation kernel's launches in the trace against captured x replays
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        ch_exp.run(CHUNK_K, chunk=CHUNK_K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    chunk_kernels = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in chunk_kernels) / 1e3
+    seen = sum(e.count for e in chunk_kernels if "fused_aggregate_kernel" in e.key)
+    per_chunk = ch_exp.trainer._scan_fn.stats["captured_launches"]["fused_aggregate_cuda"] * CHUNK_K
+    check(seen == per_chunk, f"the profiler saw fused_aggregate_kernel {seen} times in a "
+          f"replayed chunk, captured x replays is {per_chunk}")
+    print(f"[chunk] one replayed chunk of {CHUNK_K} rounds under torch.profiler: wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{sum(e.count for e in chunk_kernels)} device kernels; fused_aggregate_kernel "
+          f"{seen} in the trace = {per_chunk} captured x replays [{card}]")
+    del per_exp, ch_exp, prof, chunk_kernels
+    torch.cuda.empty_cache()
+
+    # no_trace: the taus drawn inside the captured round, on the static and
+    # the Markov channel, held to finite params and a participation within
+    # the channel's support (the clients whose uplink can and must succeed)
+    for channel in ("static", "markov"):
+        exp = build_experiment(spec_k.replace(channel=channel))
+        t = time.perf_counter()
+        exp.run(ROUNDS, chunk=ROUNDS, no_trace=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        p_up = exp.link_model.p
+        lo, hi = int((p_up >= 1).sum()), int((p_up > 0).sum())
+        part = exp.log.participation
+        check(all(v == int(v) and lo <= v <= hi for v in part),
+              f"no_trace {channel}: participation {part} outside [{lo}, {hi}]")
+        check(all(bool(torch.isfinite(x).all()) for x in tree.leaves(exp.params)),
+              f"no_trace {channel}: non-finite params")
+        scan = exp.trainer._sampled_scan_fn
+        print(f"[chunk] no_trace on the {channel} channel: one chunk of {ROUNDS} rounds with the "
+              f"taus drawn in the captured round: participation {part} in [{lo}, {hi}], "
+              f"loss {exp.log.loss}, params finite; launches a round "
+              f"{short(scan.stats['captured_launches'])}; {engine_line(scan)}; chunk "
+              f"{secs:.2f} s [{card}]")
+        del exp, scan
+        torch.cuda.empty_cache()
 
     # -- 5. times at the main path's shapes --------------------------------
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2

@@ -10,20 +10,29 @@ asks a channel for
 * ``trace(start, rounds)`` — the same stream in bulk, ``(K, n)`` and
   ``(K, n, n)`` (or ``(K, C, m, m)``) for rounds ``[start, start + K)``;
 * ``model_for_round(r)`` — the ground-truth marginals as a
-  :class:`LinkModel` (or :class:`ClusteredLinkModel`).
+  :class:`LinkModel` (or :class:`ClusteredLinkModel`);
+* ``scan_sampler(device)`` — ``(init_fn, sample_fn)`` drawing rounds of
+  the same law on ``device`` inside the chunked engine's captured round
+  (``run(..., no_trace=True)``): ``init_fn(gen)`` gives the carried state
+  and ``sample_fn(state, gen) -> (tau_up, tau_dd, state)`` draws one
+  round from the explicit ``torch.Generator`` ``gen``.
 
 :class:`StaticChannel` draws with numpy exactly as the reference does, so
 the same seed gives the same taus in both packages.  Rounds are consumed
 in nondecreasing order; the stream cannot rewind past its current block.
+The in-scan samplers draw from a ``torch.Generator``, not numpy, so they
+agree with the traced stream (and with the reference's samplers, which
+draw from ``jax.random``) in law, not draw for draw.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.connectivity import LinkModel, sample_rounds
 
-__all__ = ["BlockBufferedChannel", "StaticChannel", "pair_lane_table"]
+__all__ = ["BlockBufferedChannel", "StaticChannel", "pair_lane_table", "static_scan_sampler"]
 
 
 class BlockBufferedChannel:
@@ -99,6 +108,10 @@ class StaticChannel(BlockBufferedChannel):
     def model_for_round(self, r: int) -> LinkModel:
         return self.model
 
+    def scan_sampler(self, device):
+        """``(init_fn, sample_fn)`` drawing i.i.d. rounds in-scan on ``device``."""
+        return static_scan_sampler(self.model, device)
+
 
 def pair_lane_table(n: int) -> np.ndarray:
     """``(n*n,)`` gather lanes for assembling ``tau_dd`` from per-pair
@@ -112,3 +125,46 @@ def pair_lane_table(n: int) -> np.ndarray:
     lane[iu, ju] = np.arange(m)
     lane[ju, iu] = m + np.arange(m)
     return lane.ravel()
+
+
+def gather_pairs(tij: torch.Tensor, tji: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """``(..., m*m)`` bool from per-pair draws ``tij``/``tji`` ``(..., mp)``
+    through :func:`pair_lane_table` lanes ``lane``: the stacked
+    ``[tij, tji, ones]`` form gathered along the last axis."""
+    ones = torch.ones((*tij.shape[:-1], 1), dtype=torch.bool, device=tij.device)
+    return torch.index_select(torch.cat([tij, tji, ones], dim=-1), -1, lane)
+
+
+def static_scan_sampler(model: LinkModel, device):
+    """In-scan sampler for the paper's i.i.d. law on ``device``:
+    ``(init_fn, sample_fn)``.
+
+    ``sample_fn(state, gen)`` draws one round's ``(tau_up, tau_dd)`` from
+    ``gen`` with the same one-uniform-per-pair reciprocity coupling as
+    :func:`repro_torch.core.connectivity.sample_round`, in tensor ops that
+    a CUDA graph captures.  The process is i.i.d., so the carried state is
+    ``()``.
+    """
+    n = model.n
+    iu, ju = np.triu_indices(n, k=1)
+    m = iu.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    p = torch.as_tensor(model.p, **f32)
+    pij = torch.as_tensor(model.P[iu, ju], **f32)
+    pji = torch.as_tensor(model.P[ju, iu], **f32)
+    e = torch.as_tensor(model.E[iu, ju], **f32)
+    lane = torch.as_tensor(pair_lane_table(n), dtype=torch.int64, device=device)
+
+    def init_fn(gen):
+        del gen
+        return ()
+
+    def sample_fn(state, gen):
+        tau_up = (torch.rand(n, generator=gen, **f32) < p).float()
+        uu = torch.rand(m, generator=gen, **f32)
+        both = uu < e
+        tij = both | ((uu >= e) & (uu < pij))
+        tji = both | ((uu >= pij) & (uu < pij + pji - e))
+        return tau_up, gather_pairs(tij, tji, lane).reshape(n, n).float(), state
+
+    return init_fn, sample_fn

@@ -20,8 +20,11 @@ from ``jax.random``, which cannot be reproduced here, so each channel
 block-generates ``block`` rounds at a time from a numpy ``Generator``
 seeded from ``seed`` and agrees with the reference in law, not draw for
 draw.  ``trace`` and ``tau_for_round`` read the same buffers.  The
-reference's in-scan samplers belong to the chunked engine (ROADMAP.md
-queue 1, item 8) and its generator state to checkpointing (item 15).
+in-scan samplers of the chunked engine's no-trace mode,
+:func:`clustered_static_scan_sampler` and
+:func:`clustered_ge_scan_sampler`, draw one round per call from a
+``torch.Generator`` in the block layout.  The reference's generator state
+belongs to checkpointing (ROADMAP.md queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from repro_torch.channel.base import BlockBufferedChannel, pair_lane_table
+from repro_torch.channel.base import BlockBufferedChannel, gather_pairs, pair_lane_table
+from repro_torch.channel.markov import _LATTICE, _lattice
 from repro_torch.core.blocks import ClusteredLinkModel
 
 __all__ = [
@@ -38,12 +43,11 @@ __all__ = [
     "gilbert_elliott_clustered",
     "ClusteredStaticChannel",
     "ClusteredMarkovChannel",
+    "clustered_static_scan_sampler",
+    "clustered_ge_scan_sampler",
 ]
 
 _EPS = 1e-12
-# the reference's GE thresholds live on a 15-bit integer lattice
-# (repro.channel.markov._LATTICE): probabilities quantized to 2^-15
-_LATTICE = 32768
 
 
 def _pair_params(model: ClusteredLinkModel):
@@ -92,6 +96,41 @@ class ClusteredStaticChannel(BlockBufferedChannel):
 
     def model_for_round(self, r: int) -> ClusteredLinkModel:
         return self.model
+
+    def scan_sampler(self, device):
+        """``(init_fn, sample_fn)`` drawing i.i.d. block rounds in-scan on ``device``."""
+        return clustered_static_scan_sampler(self.model, device)
+
+
+def clustered_static_scan_sampler(model: ClusteredLinkModel, device):
+    """In-scan i.i.d. sampler on ``device``: ``sample_fn(state, gen) ->
+    (tau_up (n,), tau_b (C, m, m), state)``, the block twin of
+    :func:`repro_torch.channel.base.static_scan_sampler` with the same
+    one-uniform reciprocity coupling per pair; carried state ``()``."""
+    n, m = model.n, model.m
+    f32 = dict(dtype=torch.float32, device=device)
+    p = torch.as_tensor(model.p, **f32)
+    pij, pji, e = (torch.as_tensor(a, **f32) for a in _pair_params(model))
+    lane = torch.as_tensor(pair_lane_table(m), dtype=torch.int64, device=device)
+
+    def init_fn(gen):
+        del gen
+        return ()
+
+    def sample_fn(state, gen):
+        tau_up = (torch.rand(n, generator=gen, **f32) < p).float()
+        uu = torch.rand(pij.shape, generator=gen, **f32)  # (C, mp)
+        both = uu < e
+        tij = both | ((uu >= e) & (uu < pij))
+        tji = both | ((uu >= pij) & (uu < pij + pji - e))
+        return tau_up, _block_emit(tij, tji, lane, m), state
+
+    return init_fn, sample_fn
+
+
+def _block_emit(tij: torch.Tensor, tji: torch.Tensor, lane: torch.Tensor, m: int):
+    """(C, m, m) f32 from per-pair draws (C, mp) through the local lanes."""
+    return gather_pairs(tij, tji, lane).reshape(tij.shape[0], m, m).float()
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +189,6 @@ def gilbert_elliott_clustered(
     return ClusteredGEParams(model, pi_up, lam_up, pi_dd, lam_dd)
 
 
-def _lattice(p) -> np.ndarray:
-    return np.rint(np.clip(p, 0.0, 1.0) * _LATTICE).astype(np.int64)
-
-
 class ClusteredMarkovChannel(BlockBufferedChannel):
     """GE bursty blockage on the block support, ``block`` rounds generated
     at a time with the gate chains' state carried across blocks.
@@ -166,22 +201,14 @@ class ClusteredMarkovChannel(BlockBufferedChannel):
     def __init__(self, params: ClusteredGEParams, seed: int = 0, block: int = 256):
         super().__init__(params.n, block)
         self.params = params
-        model = params.model
-        pij, pji, eij = _pair_params(model)
-        pi_dd = np.maximum(params.pi_dd, _EPS)
-        q_up = np.where(params.pi_up > 0, model.p / np.maximum(params.pi_up, _EPS), 0.0)
-        qij, qji, e_c = pij / pi_dd, pji / pi_dd, eij / pi_dd
+        # the in-scan sampler's thresholds, read on the host
+        t = {k: v.numpy() for k, v in _cge_arrays(params, "cpu").items()}
         self._t = dict(
-            g=_lattice(np.concatenate([(1.0 - params.lam_up) * params.pi_up,
-                                       ((1.0 - params.lam_dd) * params.pi_dd).ravel()])),
-            b=_lattice(np.concatenate([(1.0 - params.lam_up) * (1.0 - params.pi_up),
-                                       ((1.0 - params.lam_dd) * (1.0 - params.pi_dd)).ravel()])),
-            q_up=_lattice(q_up),
-            qij=_lattice(qij),
-            e=_lattice(e_c),
-            mid=_lattice(qij) + _lattice(qji) - _lattice(e_c),
+            g=np.concatenate([t["t_g_up"], t["t_g_dd"].ravel()]),
+            b=np.concatenate([t["t_b_up"], t["t_b_dd"].ravel()]),
+            q_up=t["t_q_up"], qij=t["t_qij"], e=t["t_e"], mid=t["t_mid"],
         )
-        self._lane = pair_lane_table(model.m)
+        self._lane = t["pair_lane"]
         self._rng = np.random.default_rng(seed)
         # packed gate state: n uplink gates, then one per intra-cluster pair
         pi = np.concatenate([params.pi_up, params.pi_dd.ravel()])
@@ -206,3 +233,68 @@ class ClusteredMarkovChannel(BlockBufferedChannel):
 
     def model_for_round(self, r: int) -> ClusteredLinkModel:
         return self.params.model
+
+    def scan_sampler(self, device):
+        """``(init_fn, sample_fn)`` advancing the gates in-scan on ``device``."""
+        return clustered_ge_scan_sampler(self.params, device)
+
+
+def _cge_arrays(params: ClusteredGEParams, device) -> dict:
+    """The reference's integer-threshold operands on the block support
+    (``int32`` here, the reference's ``uint16`` values), the local
+    pair-lane table and the stationary occupancies, on ``device``."""
+    model = params.model
+    pij, pji, eij = _pair_params(model)
+    pi_dd = np.maximum(params.pi_dd, _EPS)
+    q_up = np.where(params.pi_up > 0, model.p / np.maximum(params.pi_up, _EPS), 0.0)
+    qij, qji, e_c = pij / pi_dd, pji / pi_dd, eij / pi_dd
+    thresh = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    return dict(
+        t_g_up=thresh(_lattice((1.0 - params.lam_up) * params.pi_up)),
+        t_b_up=thresh(_lattice((1.0 - params.lam_up) * (1.0 - params.pi_up))),
+        t_g_dd=thresh(_lattice((1.0 - params.lam_dd) * params.pi_dd)),
+        t_b_dd=thresh(_lattice((1.0 - params.lam_dd) * (1.0 - params.pi_dd))),
+        t_q_up=thresh(_lattice(q_up)),
+        t_qij=thresh(_lattice(qij)),
+        t_e=thresh(_lattice(e_c)),
+        t_mid=thresh(_lattice(qij) + _lattice(qji) - _lattice(e_c)),
+        pair_lane=torch.as_tensor(pair_lane_table(model.m), dtype=torch.int64, device=device),
+        pi_up=torch.as_tensor(params.pi_up, dtype=torch.float32, device=device),
+        pi_dd=torch.as_tensor(params.pi_dd, dtype=torch.float32, device=device),
+    )
+
+
+def _cge_emit(arrs: dict, sp: torch.Tensor, u_dd: torch.Tensor, m: int) -> torch.Tensor:
+    """Conditional pair emissions given Good gates ``sp`` (C, mp), as
+    (C, m, m) blocks."""
+    tij = sp & (u_dd < arrs["t_qij"])
+    tji = sp & ((u_dd < arrs["t_e"]) | ((u_dd >= arrs["t_qij"]) & (u_dd < arrs["t_mid"])))
+    return _block_emit(tij, tji, arrs["pair_lane"], m)
+
+
+def clustered_ge_scan_sampler(params: ClusteredGEParams, device):
+    """Per-round GE sampler for in-scan use on ``device``, block layout: the
+    twin of :func:`repro_torch.channel.markov.ge_scan_sampler` with a
+    packed ``(n + C·mp,)`` gate state, updated in place, and (C, m, m)
+    emissions."""
+    arrs = _cge_arrays(params, device)
+    n, m = params.n, params.model.m
+    C, mp = arrs["t_qij"].shape
+    cm = C * mp
+    t_g = torch.cat([arrs["t_g_up"], arrs["t_g_dd"].reshape(cm)])
+    t_b = torch.cat([arrs["t_b_up"], arrs["t_b_dd"].reshape(cm)])
+    pi = torch.cat([arrs["pi_up"], arrs["pi_dd"].reshape(cm)])
+
+    def init_fn(gen):
+        return torch.rand(pi.shape, generator=gen, dtype=torch.float32, device=device) < pi
+
+    def sample_fn(state, gen):
+        u15 = torch.randint(0, _LATTICE, (2 * n + 2 * cm,), generator=gen,
+                            dtype=torch.int32, device=device)
+        u_gate, u_up = u15[: n + cm], u15[n + cm: 2 * n + cm]
+        u_dd = u15[2 * n + cm:].reshape(C, mp)
+        state.copy_(torch.where(state, u_gate >= t_b, u_gate < t_g))
+        ups = (state[:n] & (u_up < arrs["t_q_up"])).float()
+        return ups, _cge_emit(arrs, state[n:].reshape(C, mp), u_dd, m), state
+
+    return init_fn, sample_fn

@@ -30,8 +30,13 @@ they are.  :class:`MarkovChannel` generates ``block`` rounds at a time
 from the chains' carried state with an explicit numpy ``Generator``
 seeded from ``seed``: the reference draws its stream from ``jax.random``,
 which cannot be reproduced here, so the two agree in law, not draw for
-draw.  The reference's in-scan samplers belong to the chunked engine's
-no-trace mode and are not ported yet (ROADMAP.md queue 1, item 9).
+draw.
+
+:func:`ge_scan_sampler` is the in-scan sampler of the chunked engine's
+no-trace mode: the reference's integer thresholds on a 15-bit lattice
+(:func:`_device_arrays`), one round per call from a ``torch.Generator``,
+with the packed ``(n + m,)`` gate state carried as one device tensor and
+updated in place.
 """
 
 from __future__ import annotations
@@ -40,18 +45,23 @@ import dataclasses
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
-from repro_torch.channel.base import BlockBufferedChannel
+from repro_torch.channel.base import BlockBufferedChannel, gather_pairs, pair_lane_table
 from repro_torch.core.connectivity import LinkModel
 
 __all__ = [
     "GEParams",
     "gilbert_elliott",
     "sample_ge_rounds_host",
+    "ge_scan_sampler",
     "MarkovChannel",
 ]
 
 _EPS = 1e-12
+# the in-scan samplers' thresholds live on a 15-bit integer lattice:
+# probabilities quantized to 2^-15, compared with 15-bit uniform integers
+_LATTICE = 32768
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +217,82 @@ def sample_ge_rounds_host(
 
 
 # ---------------------------------------------------------------------------
+# In-scan sampler: one round per call, for taus drawn inside the captured round
+# ---------------------------------------------------------------------------
+
+
+def _lattice(p) -> np.ndarray:
+    return np.rint(np.clip(p, 0.0, 1.0) * _LATTICE).astype(np.int64)
+
+
+def _device_arrays(params: GEParams, device) -> dict:
+    """The reference's integer-threshold operands (``int32`` here, the
+    reference's ``uint16`` values), the pair-lane table and the stationary
+    occupancies, on ``device``."""
+    q_up, qij, qji, e_c, _, _ = _conditionals(params)
+    thresh = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    # upper bound of the only-ji interval [t_qij, t_qij + t_qji - t_e),
+    # summed on the host: it can exceed the lattice by the rounding slack
+    t_mid = _lattice(qij) + _lattice(qji) - _lattice(e_c)
+    return dict(
+        t_g_up=thresh(_lattice((1.0 - params.lam_up) * params.pi_up)),
+        t_b_up=thresh(_lattice((1.0 - params.lam_up) * (1.0 - params.pi_up))),
+        t_g_dd=thresh(_lattice((1.0 - params.lam_dd) * params.pi_dd)),
+        t_b_dd=thresh(_lattice((1.0 - params.lam_dd) * (1.0 - params.pi_dd))),
+        t_q_up=thresh(_lattice(q_up)),
+        t_qij=thresh(_lattice(qij)),
+        t_qji=thresh(_lattice(qji)),
+        t_e=thresh(_lattice(e_c)),
+        t_mid=thresh(t_mid),
+        pair_lane=torch.as_tensor(pair_lane_table(params.n), dtype=torch.int64, device=device),
+        pi_up=torch.as_tensor(params.pi_up, dtype=torch.float32, device=device),
+        pi_dd=torch.as_tensor(params.pi_dd, dtype=torch.float32, device=device),
+    )
+
+
+def _stationary_state(arrs: dict, gen: torch.Generator) -> torch.Tensor:
+    """The packed ``(n + m,)`` bool gate state drawn from the chains'
+    stationary law: uplink gates first, then one per unordered pair."""
+    pi = torch.cat([arrs["pi_up"], arrs["pi_dd"]])
+    return torch.rand(pi.shape, generator=gen, dtype=torch.float32, device=pi.device) < pi
+
+
+def ge_scan_sampler(params: GEParams, device):
+    """Per-round GE sampler for in-scan use on ``device``: ``(init_fn,
+    sample_fn)``.
+
+    ``init_fn(gen)`` draws the packed ``(n + m,)`` bool gate state from the
+    stationary law; ``sample_fn(state, gen) -> (tau_up, tau_dd, state)``
+    advances every gate chain one round, in place in ``state``, and emits
+    that round's realization: one draw of ``2n + 2m`` 15-bit integers
+    against the lattice thresholds, the single-step form of the bulk
+    sampler, as the reference's ``ge_scan_sampler``.
+    """
+    arrs = _device_arrays(params, device)
+    n = params.n
+    m = int(arrs["t_qij"].shape[0])
+    t_g = torch.cat([arrs["t_g_up"], arrs["t_g_dd"]])
+    t_b = torch.cat([arrs["t_b_up"], arrs["t_b_dd"]])
+
+    def init_fn(gen):
+        return _stationary_state(arrs, gen)
+
+    def sample_fn(state, gen):
+        u15 = torch.randint(0, _LATTICE, (2 * n + 2 * m,), generator=gen,
+                            dtype=torch.int32, device=device)
+        u_gate, u_up, u_dd = u15[: n + m], u15[n + m: 2 * n + m], u15[2 * n + m:]
+        state.copy_(torch.where(state, u_gate >= t_b, u_gate < t_g))
+        su, sp = state[:n], state[n:]
+        ups = su & (u_up < arrs["t_q_up"])
+        tij = sp & (u_dd < arrs["t_qij"])
+        tji = sp & ((u_dd < arrs["t_e"]) | ((u_dd >= arrs["t_qij"]) & (u_dd < arrs["t_mid"])))
+        tau_dd = gather_pairs(tij, tji, arrs["pair_lane"]).reshape(n, n).float()
+        return ups.float(), tau_dd, state
+
+    return init_fn, sample_fn
+
+
+# ---------------------------------------------------------------------------
 # ChannelProcess wrapper: block-wise generation, per-round service
 # ---------------------------------------------------------------------------
 
@@ -258,3 +344,7 @@ class MarkovChannel(BlockBufferedChannel):
 
     def model_for_round(self, r: int) -> LinkModel:
         return self.params.model
+
+    def scan_sampler(self, device):
+        """``(init_fn, sample_fn)`` advancing the GE chains in-scan on ``device``."""
+        return ge_scan_sampler(self.params, device)

@@ -73,7 +73,8 @@ class ExperimentSpec:
     its constructor kwargs, e.g. ``{"fused": "kernel"}``), ``alpha``
     (``"auto"``, ``"copt"``, ``"fedavg"``, ``"importance"`` or an
     ``(n, n)`` array), ``copt_sweeps``, ``mode``, ``local_steps`` (the
-    paper's T), ``rounds``, ``chunk``, ``segment_d`` (flat-dim threshold
+    paper's T), ``rounds``, ``chunk`` (rounds per call of the chunked
+    engine; 1 = the per-round loop), ``segment_d`` (flat-dim threshold
     for segment-streaming aggregation; 0 = monolithic).
 
     Channel: ``channel`` (a preset of
@@ -145,17 +146,17 @@ class Experiment:
     def params(self):
         return self.trainer.params
 
-    def run(self, rounds: Optional[int] = None, *, eval_every: int = 0,
-            verbose: bool = False) -> TrainLog:
+    def run(self, rounds: Optional[int] = None, *, chunk: Optional[int] = None,
+            eval_every: int = 0, verbose: bool = False, no_trace: bool = False) -> TrainLog:
+        """``rounds`` (default ``spec.rounds``) rounds in chunks of ``chunk``
+        (default ``spec.chunk``); see :meth:`FLTrainer.run`."""
         return self.trainer.run(rounds if rounds is not None else self.spec.rounds,
-                                eval_every=eval_every, verbose=verbose)
+                                chunk=chunk if chunk is not None else self.spec.chunk,
+                                eval_every=eval_every, verbose=verbose, no_trace=no_trace)
 
 
 def _check_ported(spec: ExperimentSpec) -> None:
     check_mode(spec.mode)
-    if spec.chunk > 1:
-        raise unported(f"chunk={spec.chunk} (the chunked multi-round engine)",
-                       "item 8 (chunked engine)")
     preset = CHANNEL_PRESETS.get(spec.channel)
     if preset is not None and preset.kind == "mobility":
         raise unported(f"channel {spec.channel!r}", "item 9 (channels: mobility)")

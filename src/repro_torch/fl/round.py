@@ -9,18 +9,27 @@
 Only the ``per_client`` mode is ported: it materializes the per-client
 update stack.  The reference vmaps over clients; here the clients run in
 a plain loop and their deltas are stacked on a new leading axis.
+
+Multi-round execution: :func:`make_scan_round_fn` runs K rounds of the
+same round body per call, the chunked engine ``FLTrainer.run(chunk=K)``
+drives.  On the CUDA device the body is captured once as a CUDA graph and
+replayed K times, the port's counterpart of the reference's compiled
+``lax.scan``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple, Union
+import gc
+import time
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch import strategies as strategy_registry
 from repro_torch import tree
 from repro_torch.core import flatten
+from repro_torch.kernels import launch_counts
 from repro_torch.optim import Optimizer, global_norm
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext
 
@@ -136,9 +145,245 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
                 "delta_norm": global_norm(gdelta),
                 "participation": participation,
                 "uplink_bits": participation * bits_per_client,
+                # a device-side fill: no host->device copy inside a captured round
                 "weight_sum": (torch.sum(w_scalar) if w_scalar is not None
-                               else torch.tensor(float("nan"), device=tau_up.device)),
+                               else torch.full((), float("nan"), device=tau_up.device)),
             }
         return new_params, server_state, agg_state, metrics
 
     return round_fn
+
+
+#: the per-round metrics of the chunked engine, in the order of its ``(K, 5)``
+#: device buffer
+METRIC_KEYS = ("loss", "delta_norm", "participation", "uplink_bits", "weight_sum")
+
+
+def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
+                       rc: RoundConfig, channel_sampler: Optional[Callable] = None):
+    """The chunked multi-round engine: K rounds of :func:`make_round_fn`'s
+    body per call, with one host round trip.
+
+    Two signatures, as the reference's ``make_scan_round_fn``:
+
+    * traced (default): ``scan(params, server_state, agg_state, batches,
+      tau_up, tau_dd, A) -> (params, server_state, agg_state, metrics)``
+      with ``batches`` leaves ``(K, n, T, B, ...)``, ``tau_up (K, n)`` and
+      ``tau_dd (K, n, n)`` (or ``(K, C, m, m)``) on the params' device;
+    * ``channel_sampler=sample_fn`` (a channel's ``scan_sampler(device)``):
+      ``scan(params, server_state, agg_state, batches, channel_state, gen,
+      A) -> (params, server_state, agg_state, channel_state, gen,
+      metrics)``; each round draws its taus with ``sample_fn(channel_state,
+      gen)`` inside the round, so no tau tensor crosses from the host.
+
+    ``metrics`` maps each of :data:`METRIC_KEYS` to a ``(K,)`` device tensor.
+
+    On the CPU the K rounds run as a plain loop over the round body.  On a
+    CUDA device one round is captured as a CUDA graph and replayed K times:
+    the carry, the chunk's batches and taus, ``A`` and a ``(K, 5)`` metric
+    buffer live in static device buffers, and the body selects round i's
+    slot from a device round counter and advances it, so the host does
+    nothing between replays.  Capture raises if the round cannot be
+    captured; there is no eager fallback on the card.  Generators in the
+    carry (the int8 codec's, the sampler's ``gen``) are registered with the
+    graph, so replays advance them exactly as eager rounds do and the
+    chunk's trajectory is bitwise the per-round loop's.
+
+    The returned carry tensors are the engine's static buffers: the next
+    call overwrites them in place (the reference donates its carry).  A
+    call with the same carry structure, shapes and generators and at most
+    the captured K reuses the graph; anything else captures anew.  The
+    statistics of the last capture are in ``scan.stats``.
+    """
+    return ScanRound(make_round_fn(loss_fn, client_opt, server_opt, rc), channel_sampler)
+
+
+class ScanRound:
+    """The callable :func:`make_scan_round_fn` returns."""
+
+    def __init__(self, round_fn: Callable, sample_fn: Optional[Callable] = None):
+        self.round_fn = round_fn
+        self.sample_fn = sample_fn
+        self._slot: Optional[_RoundSlot] = None
+        #: warm-up, capture and instantiate seconds, launches counted in the
+        #: warm-up round and in the captured round, the graph's memory pool
+        #: bytes, the chunk's static batch and tau buffers' bytes, and rounds
+        #: replayed since the capture (CUDA only)
+        self.stats: Dict[str, Any] = {}
+
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        """The captured round (kept, so its nodes can be counted), or None."""
+        return self._slot.graph if self._slot is not None else None
+
+    def __call__(self, params, server_state, agg_state, batches, a, b, A):
+        sampled = self.sample_fn is not None
+        carry = (params, server_state, agg_state) + ((a,) if sampled else ())
+        xs = dict(batches)
+        gen = b if sampled else None
+        taus = None if sampled else (a, b)
+        K = next(iter(xs.values())).shape[0]
+        sig = _signature(carry, xs, taus, A, gen)
+        slot = self._slot
+        if slot is None or slot.sig != sig or slot.capacity < K:
+            self._slot = slot = None  # the old graph and its pool go first
+            slot = _RoundSlot(self.round_fn, self.sample_fn, self.stats, carry, xs, taus, A,
+                              gen, K, sig)
+            self._slot = slot
+        out, metrics = slot.run(carry, xs, taus, A, K)
+        return (*out, gen, metrics) if sampled else (*out, metrics)
+
+
+def _signature(carry, xs, taus, A, gen):
+    def sig(x):
+        if isinstance(x, torch.Tensor):
+            return ("t", tuple(x.shape), x.dtype, x.device)
+        return ("o", id(x))  # generators and other objects by identity
+
+    leaves, treedef = tree.flatten(carry)
+    return (treedef, tuple(map(sig, leaves)),
+            tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in sorted(xs.items())),
+            None if taus is None else tuple(tuple(t.shape[1:]) for t in taus),
+            sig(A), None if gen is None else id(gen))
+
+
+def _load(buf: torch.Tensor, x: torch.Tensor) -> None:
+    if buf is not x:
+        buf.copy_(x)
+
+
+class _RoundSlot:
+    """Static buffers and the round body for one carry signature, with its
+    captured graph on a CUDA device.  It holds no reference back to its
+    :class:`ScanRound`, so dropping that frees the graph at once, not at a
+    later garbage collection."""
+
+    def __init__(self, round_fn, sample_fn, stats, carry, xs, taus, A, gen, K: int, sig):
+        dev = A.device
+        self.round_fn, self.sample_fn, self.stats = round_fn, sample_fn, stats
+        self.sig, self.capacity, self.gen = sig, K, gen
+        leaves, self.treedef = tree.flatten(carry)
+        self.bufs = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+        self.xs = {k: torch.empty((K, *v.shape[1:]), dtype=v.dtype, device=dev)
+                   for k, v in xs.items()}
+        self.taus = None if taus is None else tuple(
+            torch.empty((K, *t.shape[1:]), dtype=torch.float32, device=dev) for t in taus)
+        self.A = A.clone()
+        self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.metrics = torch.zeros((K, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
+        self.graph = None
+        if dev.type == "cuda":
+            self._capture(carry, xs, taus, A, K)
+
+    def body(self) -> None:
+        """One round on the static buffers: round ``counter``'s slot in, the
+        carry written back in place, the metrics into row ``counter``, and
+        ``counter`` advanced.  What the graph captures."""
+        i = self.counter
+        x = {k: torch.index_select(v, 0, i)[0] for k, v in self.xs.items()}
+        params, server_state, agg_state, *cs = tree.unflatten(self.treedef, self.bufs)
+        if self.taus is None:
+            tau_up, tau_dd, channel_state = self.sample_fn(cs[0], self.gen)
+            cs = [channel_state]
+        else:
+            tau_up, tau_dd = (torch.index_select(t, 0, i)[0] for t in self.taus)
+        params, server_state, agg_state, m = self.round_fn(
+            params, server_state, agg_state, x, tau_up, tau_dd, self.A)
+        new, treedef = tree.flatten((params, server_state, agg_state, *cs))
+        if treedef != self.treedef:
+            raise RuntimeError("the round changed the structure of its carry")
+        for buf, v in zip(self.bufs, new):
+            if not isinstance(buf, torch.Tensor):
+                if v is not buf:
+                    raise RuntimeError(
+                        f"the round replaced a carried {type(buf).__name__}; only tensors "
+                        "and generators advanced in place can be carried")
+            elif v.shape != buf.shape or v.dtype != buf.dtype:
+                raise RuntimeError(f"the round changed a carried tensor from {buf.shape} "
+                                   f"{buf.dtype} to {v.shape} {v.dtype}")
+            else:
+                buf.copy_(v)
+        self.metrics.index_copy_(0, i, torch.stack([m[k].float() for k in METRIC_KEYS])[None])
+        i.add_(1)
+
+    def _load(self, carry, xs, taus, A, K: int) -> None:
+        for buf, x in zip(self.bufs, tree.leaves(carry)):
+            if isinstance(buf, torch.Tensor):
+                _load(buf, x)
+        for k, v in xs.items():
+            self.xs[k][:K].copy_(v)
+        if taus is not None:
+            for buf, t in zip(self.taus, taus):
+                buf[:K].copy_(t)
+        _load(self.A, A)
+        self.counter.zero_()
+
+    def _generators(self):
+        gens = [b for b in self.bufs if isinstance(b, torch.Generator)]
+        return gens + ([self.gen] if self.gen is not None else [])
+
+    def _capture(self, carry, xs, taus, A, K: int) -> None:
+        """One eager warm-up round on a side stream (cuDNN's algorithm
+        choice, the kernel library's load, the allocator), undone, then the
+        capture of one round."""
+        dev, stats = self.A.device, self.stats
+        gens = self._generators()
+        saved = [g.get_state() for g in gens]
+        counts0 = launch_counts()
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._load(carry, xs, taus, A, K)
+            self.body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        stats["warmup_s"] = time.perf_counter() - t0
+        counts1 = launch_counts()
+        # the warm-up must not advance the trajectory: the carry is loaded
+        # again before every chunk, the generators are put back here
+        for g, state in zip(gens, saved):
+            g.set_state(state)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for g in gens:
+            graph.register_generator_state(g)
+        torch.cuda.empty_cache()  # what the capture reserves is then its pool alone
+        reserved = torch.cuda.memory_reserved(dev)
+        # a graph that the collector frees during the capture (destroying a
+        # graph is not allowed while a stream captures) would end it: collect
+        # first, and not while capturing
+        gc.collect()
+        gc_enabled = gc.isenabled()
+        gc.disable()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                self.body()
+        finally:
+            if gc_enabled:
+                gc.enable()
+        stats["capture_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize(dev)
+        stats["instantiate_s"] = time.perf_counter() - t0
+        stats["pool_bytes"] = torch.cuda.memory_reserved(dev) - reserved
+        counts2 = launch_counts()
+        stats["warmup_launches"] = {k: v - counts0[k] for k, v in counts1.items() if v - counts0[k]}
+        stats["captured_launches"] = {k: v - counts1[k] for k, v in counts2.items()
+                                      if v - counts1[k]}
+        stats["buffer_bytes"] = sum(v.numel() * v.element_size() for v in
+                                    [*self.xs.values(), *(self.taus or ())])
+        stats["replays"] = 0
+        self.graph = graph
+
+    def run(self, carry, xs, taus, A, K: int):
+        self._load(carry, xs, taus, A, K)
+        step = self.graph.replay if self.graph is not None else self.body
+        for _ in range(K):
+            step()
+        if self.graph is not None:
+            self.stats["replays"] += K
+        metrics = self.metrics[:K].clone()
+        return (tree.unflatten(self.treedef, self.bufs),
+                {k: metrics[:, j] for j, k in enumerate(METRIC_KEYS)})

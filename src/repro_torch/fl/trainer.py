@@ -1,7 +1,15 @@
 """Host-side FL training driver: samples connectivity, streams per-client
 batches to the device, runs the round, tracks metrics, evaluates.
 
-The per-round loop of ``repro.fl.trainer.FLTrainer``.  Options of the
+The per-round loop and the chunked engine of ``repro.fl.trainer.FLTrainer``.
+``run(rounds, chunk=K)`` runs aligned chunks of K rounds through
+:func:`~repro_torch.fl.round.make_scan_round_fn` (a captured round replayed
+K times on the CUDA device): the chunk's batches come from one
+``stack_chunk_batches`` and one host-to-device copy, its taus from one
+``channel.trace``, and its metrics back with one device-to-host copy.  The
+trajectory is bitwise the per-round loop's: both consume the same channel
+and batch streams through the same round body.  ``no_trace=True`` draws the
+taus inside the round from the channel's ``scan_sampler``.  Options of the
 reference that this package does not have yet raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 Prefer building a trainer through
@@ -22,7 +30,7 @@ from repro_torch.channel.base import StaticChannel
 from repro_torch.core import flatten
 from repro_torch.core.connectivity import LinkModel
 from repro_torch.data.pipeline import ClientDataset, stack_chunk_batches
-from repro_torch.fl.round import RoundConfig, make_round_fn
+from repro_torch.fl.round import RoundConfig, make_round_fn, make_scan_round_fn
 from repro_torch.optim import Optimizer
 
 Params = Any
@@ -121,26 +129,37 @@ class FLTrainer:
         self.agg_state = self.strategy.init_state(n, flatten.flat_spec(self.params).d,
                                                   device=self.device)
         self._round_fn = make_round_fn(loss_fn, client_opt, server_opt, self.rc)
+        self._opts = (loss_fn, client_opt, server_opt)
+        self._scan_fn = None  # built on the first chunked run
+        # no-trace mode: the in-scan sampler's engine and its carry
+        self._seed = seed
+        self._sampled_scan_fn = None
+        self._channel_state = None
+        self._channel_gen = None
         self.round = 0
         self.log = TrainLog()
 
     def _to_device(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
 
-    def _run_one(self, r: int, eval_every: int, verbose: bool) -> None:
-        """One communication round."""
-        tau_up, tau_dd = self.channel.tau_for_round(r)
-        batches = stack_chunk_batches(self.clients, self.rc.local_steps, 1)
-        batches = {k: self._to_device(v[0]) for k, v in batches.items()}
-        (self.params, self.server_state, self.agg_state, metrics) = self._round_fn(
-            self.params, self.server_state, self.agg_state, batches,
-            self._to_device(tau_up, torch.float32), self._to_device(tau_dd, torch.float32),
-            self.A)
-        # one device->host copy for the round's scalars, widened to float64
-        values = torch.stack([metrics[k] for k, _ in _METRIC_FIELDS]).cpu().double().tolist()
-        self.log.rounds.append(r)
-        for (_, field), v in zip(_METRIC_FIELDS, values):
-            getattr(self.log, field).append(v)
+    def _stack_batches(self, rounds: int) -> Dict[str, torch.Tensor]:
+        """``rounds`` rounds of every client's local-step batches,
+        ``(rounds, n, T, B, ...)`` on the device: one gather per client and
+        one host-to-device copy per leaf."""
+        out = stack_chunk_batches(self.clients, self.rc.local_steps, rounds)
+        return {k: self._to_device(v) for k, v in out.items()}
+
+    def _log_rounds(self, r: int, metrics: Dict[str, torch.Tensor]) -> None:
+        """Append rounds ``r, r+1, ...`` from 0-d or ``(K,)`` metrics, with
+        one device-to-host copy, widened to float64."""
+        values = torch.stack([metrics[k].reshape(-1) for k, _ in _METRIC_FIELDS])
+        values = values.cpu().double().tolist()
+        for i in range(len(values[0])):
+            self.log.rounds.append(r + i)
+            for (_, field), v in zip(_METRIC_FIELDS, values):
+                getattr(self.log, field).append(v[i])
+
+    def _maybe_eval(self, r: int, eval_every: int, verbose: bool) -> None:
         if eval_every and (r + 1) % eval_every == 0 and self.eval_fn is not None:
             em = {k: float(v) for k, v in self.eval_fn(self.params).items()}
             self.log.eval_rounds.append(r)
@@ -150,14 +169,97 @@ class FLTrainer:
                       "  ".join(f"{k}={v:.4f}" for k, v in em.items()))
         elif verbose and (r + 1) % 10 == 0:
             print(f"  round {r+1:4d}  loss={self.log.loss[-1]:.4f}")
+
+    def _run_one(self, r: int, eval_every: int, verbose: bool) -> None:
+        """One communication round."""
+        tau_up, tau_dd = self.channel.tau_for_round(r)
+        batches = {k: v[0] for k, v in self._stack_batches(1).items()}
+        (self.params, self.server_state, self.agg_state, metrics) = self._round_fn(
+            self.params, self.server_state, self.agg_state, batches,
+            self._to_device(tau_up, torch.float32), self._to_device(tau_dd, torch.float32),
+            self.A)
+        self._log_rounds(r, metrics)
+        self._maybe_eval(r, eval_every, verbose)
         self.round = r + 1
 
+    def _effective_chunk(self, chunk: int, eval_every: int) -> int:
+        """The requested chunk when it divides the eval cadence, so evals
+        land on chunk boundaries, else 1 (per-round)."""
+        if chunk <= 1 or (eval_every and eval_every % chunk != 0):
+            return 1
+        return chunk
+
+    def _run_chunks(self, r0: int, n_chunks: int, k: int, eval_every: int,
+                    verbose: bool) -> None:
+        """``n_chunks`` chunks of ``k`` rounds through the chunked engine."""
+        if self._scan_fn is None:
+            self._scan_fn = make_scan_round_fn(*self._opts, self.rc)
+        batches = self._stack_batches(k)
+        for c in range(n_chunks):
+            r = r0 + c * k
+            tau_up, tau_dd = self.channel.trace(r, k)
+            (self.params, self.server_state, self.agg_state, metrics) = self._scan_fn(
+                self.params, self.server_state, self.agg_state, batches,
+                self._to_device(tau_up, torch.float32), self._to_device(tau_dd, torch.float32),
+                self.A)
+            # the chunk runs on the device while the host stacks the next
+            # chunk's batches (the same client streams, in the same order)
+            batches = self._stack_batches(k) if c + 1 < n_chunks else None
+            self._log_rounds(r, metrics)
+            self._maybe_eval(r + k - 1, eval_every, verbose)
+            self.round = r + k
+
+    def _run_chunks_sampled(self, r0: int, k: int, eval_every: int, verbose: bool) -> None:
+        """One chunk of ``k`` rounds whose taus are drawn inside the round by
+        the channel's in-scan sampler, from a generator seeded from the
+        trainer's ``seed`` on the device: no tau tensor crosses from the
+        host."""
+        if self._sampled_scan_fn is None:
+            init_fn, sample_fn = self.channel.scan_sampler(self.device)
+            self._sampled_scan_fn = make_scan_round_fn(*self._opts, self.rc,
+                                                       channel_sampler=sample_fn)
+            self._channel_gen = torch.Generator(device=self.device).manual_seed(self._seed)
+            self._channel_state = init_fn(self._channel_gen)
+        (self.params, self.server_state, self.agg_state, self._channel_state,
+         self._channel_gen, metrics) = self._sampled_scan_fn(
+            self.params, self.server_state, self.agg_state, self._stack_batches(k),
+            self._channel_state, self._channel_gen, self.A)
+        self._log_rounds(r0, metrics)
+        self._maybe_eval(r0 + k - 1, eval_every, verbose)
+        self.round = r0 + k
+
     def run(self, rounds: int, *, chunk: int = 1, eval_every: int = 0,
-            verbose: bool = False) -> TrainLog:
-        """Train for ``rounds`` communication rounds, one round at a time."""
-        if chunk > 1:
-            raise unported(f"chunk={chunk} (the chunked multi-round engine)",
-                           "item 8 (chunked engine)")
-        for r in range(self.round, self.round + rounds):
-            self._run_one(r, eval_every, verbose)
+            verbose: bool = False, no_trace: bool = False) -> TrainLog:
+        """Train for ``rounds`` communication rounds.
+
+        ``chunk=K`` runs K rounds per call of the chunked engine (on the
+        CUDA device, K replays of one captured round) and reaches the host
+        only at chunk boundaries; the trajectory is bitwise the per-round
+        loop's.  Rounds that cannot form an aligned chunk (leading rounds
+        until the round counter is a multiple of K, and the tail) run per
+        round; if K does not divide ``eval_every`` the whole run is per
+        round.
+
+        ``no_trace=True`` draws the taus inside the round through the
+        channel's ``scan_sampler``, in chunks of K (the last one shorter):
+        the same law as the traced stream, not the same draws.
+        """
+        start, end = self.round, self.round + rounds
+        k = self._effective_chunk(int(chunk), eval_every)
+        if no_trace:
+            if not hasattr(self.channel, "scan_sampler"):
+                raise ValueError(f"no_trace needs a channel with scan_sampler(); "
+                                 f"{type(self.channel).__name__} cannot sample in-scan")
+            for r in range(start, end, k):
+                self._run_chunks_sampled(r, min(k, end - r), eval_every, verbose)
+            return self.log
+        r = start
+        while r < end:
+            if k > 1 and r % k == 0 and r + k <= end:
+                n_chunks = (end - r) // k
+                self._run_chunks(r, n_chunks, k, eval_every, verbose)
+                r += n_chunks * k
+            else:
+                self._run_one(r, eval_every, verbose)
+                r += 1
         return self.log

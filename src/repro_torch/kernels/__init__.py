@@ -16,4 +16,18 @@ and the device dispatch in :mod:`repro_torch.kernels.ops`.
   state carried chunk to chunk inside one block.
 
 Sources are in ``csrc/`` and are compiled by :mod:`.build` at first use.
+Each ``*_cuda`` wrapper counts its launches in ``launches``;
+:func:`launch_counts` reads them all.
 """
+
+
+def launch_counts() -> dict:
+    """``{wrapper name: launches}`` of every kernel wrapper, read, not reset."""
+    from repro_torch.kernels import (flash_attention, fused_aggregate, fused_dequant,
+                                     fused_memory, relay_block, relay_mix, ssd_scan)
+
+    return {name: fn.launches
+            for mod in (fused_aggregate, fused_dequant, fused_memory, relay_block, relay_mix,
+                        flash_attention, ssd_scan)
+            for name, fn in vars(mod).items()
+            if name.endswith("_cuda") and hasattr(fn, "launches")}

@@ -16,8 +16,9 @@ known multiplicative bias (``E[decode(encode(x))] = gain · x``); the
 strategy divides the decoded stack by it before the inner aggregation.
 
 **State.**  The strategy threads ``(codec_state, inner_state)`` through
-the round's ``agg_state``; the int8 codec's state is a ``(seed, step)``
-pair, so every round draws fresh rounding noise.
+the round's ``agg_state``; the int8 codec's state is a ``torch.Generator``
+on the round's device, which every encode advances, so every round draws
+fresh rounding noise.
 
 **Execution.**  ``fused=False`` (default) is the dequant oracle: ravel
 once, ``decode`` to an f32 stack, inner ``aggregate``.  ``fused="kernel"``
@@ -75,7 +76,8 @@ class QuantizedStrategy(AggregationStrategy):
         self.needs_A = self.inner.needs_A
 
     def init_state(self, n: int, d: int, *, device=None) -> State:
-        return (self.codec.init_state(n, d), self.inner.init_state(n, d, device=device))
+        return (self.codec.init_state(n, d, device=device),
+                self.inner.init_state(n, d, device=device))
 
     def wire_bits_per_coord(self, d: int) -> float:
         return self.codec.descriptor(d).bits_per_coord

@@ -10,10 +10,10 @@ codec perturbs the aggregation — whether the reconstruction is unbiased,
 the known multiplicative gain to divide out, and a per-coordinate noise
 proxy.
 
-Codec state is explicit and checkpointable: a stochastic codec carries a
-plain value (the int8 codec a ``(seed, step)`` pair) that the strategy
-threads through the round's ``agg_state``; each encode derives its
-``torch.Generator`` from it, so no global RNG is read.
+Codec state is explicit: a stochastic codec carries its own
+``torch.Generator`` (the int8 codec), made on the update stack's device at
+``init_state``, that the strategy threads through the round's
+``agg_state``; each encode draws from it, so no global RNG is read.
 """
 
 from __future__ import annotations
@@ -74,10 +74,10 @@ class WireCodec:
         """The bias/variance contract for flat dimension ``d``."""
         raise NotImplementedError
 
-    def init_state(self, n: int, d: int) -> State:
-        """Initial codec state for ``n`` clients and flat dim ``d``
-        (``()`` for deterministic codecs)."""
-        del n, d
+    def init_state(self, n: int, d: int, *, device=None) -> State:
+        """Initial codec state for ``n`` clients and flat dim ``d``, with
+        any generator on ``device`` (``()`` for deterministic codecs)."""
+        del n, d, device
         return ()
 
     def encode(self, x: torch.Tensor, state: State) -> Tuple[Encoded, State]:

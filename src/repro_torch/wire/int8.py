@@ -17,20 +17,23 @@ the fused dequant kernel (:mod:`repro_torch.kernels.fused_dequant`)
 consumes by folding ``s`` into the aggregation weights, streaming the
 int8 stack at a quarter of the f32 traffic.
 
-Randomness is codec state: a ``(seed, step)`` pair of Python ints threaded
-through the round's ``agg_state``.  Each encode seeds a ``torch.Generator``
-on the stack's device from it and advances ``step`` by one, so every round
-draws fresh noise, the same state gives the same draws, and no global RNG
-is read.  The reference draws from ``jax.random`` keys, whose stream
-cannot be reproduced here: the two agree in law (unbiasedness, grid
-pitch), not draw for draw.
+Randomness is codec state: one ``torch.Generator`` on the stack's device,
+made by :meth:`Int8StochasticCodec.init_state` from ``seed`` and threaded
+through the round's ``agg_state``.  Each encode draws its noise from it,
+which advances it in place, and returns it as the next state, so every
+round draws fresh noise and no global RNG is read; a caller that wants the
+same draws twice restores it with ``get_state``/``set_state``.  A CUDA
+graph that captures a round registers the generator
+(``CUDAGraph.register_generator_state``), so the eager rounds and the
+graph's replays advance one Philox stream.  The reference draws from
+``jax.random`` keys, whose stream cannot be reproduced here: the two agree
+in law (unbiasedness, grid pitch), not draw for draw.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.wire import registry
@@ -85,15 +88,9 @@ class Int8StochasticCodec(WireCodec):
             rel_variance=1.0 / (4.0 * self.levels**2),
         )
 
-    def init_state(self, n: int, d: int) -> Tuple[int, int]:
+    def init_state(self, n: int, d: int, *, device=None) -> torch.Generator:
         del n, d
-        return (self.seed, 0)
-
-    @staticmethod
-    def _generator(state: Tuple[int, int], device) -> torch.Generator:
-        seed, step = state
-        mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
-        return torch.Generator(device=device).manual_seed(int(mixed))
+        return torch.Generator(device=device or "cpu").manual_seed(self.seed)
 
     def _scale(self, rowmax: torch.Tensor) -> torch.Tensor:
         return torch.clamp(rowmax / self.levels, min=_SCALE_FLOOR)
@@ -104,11 +101,9 @@ class Int8StochasticCodec(WireCodec):
         return torch.clamp(q, -self.levels, self.levels).to(torch.int8)
 
     def encode(self, x: torch.Tensor, state: State) -> Tuple[tuple, State]:
-        seed, step = state
         xf = x.float()
         scale = self._scale(torch.amax(torch.abs(xf), dim=1, keepdim=True))
-        q = self._round(xf, scale, self._generator(state, xf.device))
-        return (q, scale), (seed, step + 1)
+        return (self._round(xf, scale, state), scale), state
 
     def encode_segments(self, segments, state: State) -> Tuple[tuple, State]:
         """Quantize per-leaf ``(n, d_i)`` segments against one row-global
@@ -116,16 +111,13 @@ class Int8StochasticCodec(WireCodec):
         per-segment row maxima — max is exact, so the scale is bitwise the
         monolithic :meth:`encode` scale.  The rounding noise is drawn
         segment by segment from the same generator: distributionally
-        identical to :meth:`encode`'s, not the same realization; the state
-        advances by the same single step."""
-        seed, step = state
+        identical to :meth:`encode`'s, not the same realization."""
         xs = [s.float() for s in segments]
         rowmax = torch.amax(torch.abs(xs[0]), dim=1, keepdim=True)
         for xf in xs[1:]:
             rowmax = torch.maximum(rowmax, torch.amax(torch.abs(xf), dim=1, keepdim=True))
         scale = self._scale(rowmax)
-        gen = self._generator(state, xs[0].device)
-        return ([self._round(xf, scale, gen) for xf in xs], scale), (seed, step + 1)
+        return ([self._round(xf, scale, state) for xf in xs], scale), state
 
     def decode(self, encoded: tuple) -> torch.Tensor:
         q, scale = encoded

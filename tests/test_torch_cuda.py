@@ -17,7 +17,9 @@ attention is held to its plain version (the dense softmax) at atol = rtol
 compared in f32: the online softmax sums in another order.  The chunked
 SSD recurrence is held to its plain version at atol = rtol = 5e-4 in f32
 (the reference's bound for its kernel) and 2e-2 in bf16, compared in f32:
-both compute in f32 and sum the products in another order.
+both compute in f32 and sum the products in another order.  The chunked
+engine's graphed chunk (one captured round replayed) is held to the
+per-round loop bitwise, with the int8 codec's generator.
 """
 
 import pytest
@@ -837,3 +839,155 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="unit stride"):
         x = torch.randn(2, 64, 16, device=dev)[:, :, ::2]
         ssd.ssd_scan_cuda(x, x, v, logd)
+
+
+# -- the chunked engine: one round captured as a CUDA graph, replayed ---------
+#
+# A graphed chunk runs the eager round's kernels on the same inputs, so it is
+# held to the per-round loop bitwise (cuDNN deterministic, as chip_smoke.py
+# runs it).
+
+ENGINE_PATHS = {
+    "colrel kernel": dict(strategy="colrel", strategy_options={"fused": "kernel"}),
+    "colrel segmented": dict(strategy="colrel", strategy_options={"fused": "kernel"},
+                             segment_d=1),
+    "colrel collapse": dict(strategy="colrel", strategy_options={"fused": "collapse"}),
+    "memory kernel": dict(strategy="memory", strategy_options={"fused": "kernel"},
+                          channel="markov"),
+    "memory segmented": dict(strategy="memory", strategy_options={"fused": "kernel"},
+                             channel="markov", segment_d=1),
+    "quantized kernel": dict(strategy="quantized",
+                             strategy_options={"codec": "int8", "fused": "kernel"}),
+    "quantized segmented": dict(strategy="quantized",
+                                strategy_options={"codec": "int8", "fused": "kernel"},
+                                segment_d=1),
+}
+
+
+@pytest.fixture
+def deterministic(dev):
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield dev
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def _assert_trainers_equal(a, b):
+    from repro_torch import tree
+
+    for field in ("loss", "participation", "uplink_bits", "weight_sums"):
+        x, y = getattr(a.log, field), getattr(b.log, field)
+        assert len(x) == len(y) and all(u == v or (u != u and v != v) for u, v in zip(x, y)), field
+    for state in ("params", "server_state", "agg_state"):
+        for x, y in zip(tree.leaves(getattr(a, state)), tree.leaves(getattr(b, state))):
+            if isinstance(x, torch.Generator):
+                assert torch.equal(x.get_state(), y.get_state()), state
+            else:
+                assert x.is_cuda and torch.equal(x, y), state
+
+
+@pytest.mark.parametrize("model", ["quadratic", "cifar_cnn"])
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_graphed_chunk_equals_per_round(deterministic, path, model):
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+
+    small = dict(local_steps=2, data_size=640, eval_size=64, batch_size=8)
+    spec = ExperimentSpec(model=model, **ENGINE_PATHS[path],
+                          **(small if model == "cifar_cnn" else {}))
+    a, b = build_experiment(spec), build_experiment(spec)
+    a.run(6)
+    b.run(6, chunk=3)
+    _assert_trainers_equal(a.trainer, b.trainer)
+    stats = b.trainer._scan_fn.stats
+    assert b.trainer._scan_fn.graph is not None and stats["replays"] == 6
+    # one aggregation kernel launch a round, captured once; none on the collapse path
+    assert sum(stats["captured_launches"].values()) == (0 if "collapse" in path else 1)
+
+
+@pytest.mark.parametrize("fused,segment_d", [("kernel", 0), ("kernel", 1)])
+def test_graphed_chunk_equals_per_round_clustered(deterministic, fused, segment_d):
+    from repro_torch import strategies
+    from repro_torch.channel import ClusteredStaticChannel
+    from repro_torch.core import topology
+    from repro_torch.core.weights import optimize_weights_clustered
+    from repro_torch.fl.experiment import ExperimentSpec, build_task
+    from repro_torch.fl.trainer import FLTrainer
+
+    cmodel = topology.clustered_blocks(10, 0.5, 5, p_intra=0.8, rho=1.0)
+    Ab = optimize_weights_clustered(cmodel, sweeps=10, fine_tune_sweeps=10).Ab
+
+    def make():
+        loss_fn, init, clients, copt, sopt, T, _ = build_task(ExperimentSpec(model="quadratic"),
+                                                              cmodel.n)
+        return FLTrainer(loss_fn, init, None, Ab, clients, copt, sopt, local_steps=T,
+                         strategy=strategies.get("clustered", fused=fused),
+                         channel=ClusteredStaticChannel(cmodel, seed=3), segment_d=segment_d)
+
+    a, b = make(), make()
+    a.run(6)
+    b.run(6, chunk=3)
+    _assert_trainers_equal(a, b)
+    name = "block_row_stream_segments_cuda" if segment_d else "block_fused_aggregate_cuda"
+    assert b._scan_fn.stats["captured_launches"] == {name: 1}
+
+
+def test_failed_capture_raises_and_does_not_fall_back(dev):
+    """A round that synchronises with the host cannot be captured: the
+    engine raises and leaves no graph, and never runs the rounds eagerly."""
+    from repro_torch.fl.round import RoundConfig, make_scan_round_fn
+    from repro_torch.optim import sgd, sgd_momentum
+
+    def loss_fn(params, batch):
+        loss = torch.sum((params["x"] - batch["t"][0]) ** 2)
+        if float(loss.detach()) < 0:  # a host read of a device value
+            raise AssertionError("unreachable")
+        return loss, {}
+
+    rc = RoundConfig(n_clients=2, local_steps=1)
+    sopt = sgd_momentum(1.0, beta=0.9)
+    scan = make_scan_round_fn(loss_fn, sgd(0.1), sopt, rc)
+    p = {"x": torch.zeros(3, device=dev)}
+    batches = {"t": torch.ones(2, 2, 1, 1, 3, device=dev)}
+    taus = torch.ones(2, 2, device=dev), torch.ones(2, 2, 2, device=dev)
+    with pytest.raises(RuntimeError):
+        scan(p, sopt.init(p), (), batches, *taus, torch.eye(2, device=dev))
+    assert scan.graph is None and torch.equal(p["x"], torch.zeros(3, device=dev))
+
+
+def test_int8_generator_advances_alike_eager_and_replayed(deterministic):
+    """The codec's generator after K eager rounds and after K replays of the
+    captured round: the same Philox state and the same draws."""
+    from repro_torch import strategies
+    from repro_torch.fl.round import RoundConfig, make_round_fn, make_scan_round_fn
+    from repro_torch.optim import sgd, sgd_momentum
+
+    dev = deterministic
+
+    def loss_fn(params, batch):
+        return torch.sum((params["x"] - batch["t"][0]) ** 2), {}
+
+    rc = RoundConfig(n_clients=4, local_steps=2,
+                     aggregation=strategies.get("quantized", codec="int8", fused="kernel"))
+    strategy = rc.resolve_strategy()
+    sopt = sgd_momentum(1.0, beta=0.9)
+    g = torch.Generator(device=dev).manual_seed(0)
+    K = 5
+    batches = {"t": torch.randn(K, 4, 2, 1, 300, generator=g, device=dev)}
+    tau_up = (torch.rand(K, 4, generator=g, device=dev) < 0.7).float()
+    tau_dd = (torch.rand(K, 4, 4, generator=g, device=dev) < 0.6).float()
+    A = torch.rand(4, 4, generator=g, device=dev) * 0.5
+    p0 = {"x": torch.zeros(300, device=dev)}
+
+    round_fn = make_round_fn(loss_fn, sgd(0.1), sopt, rc)
+    p, ss, ag = p0, sopt.init(p0), strategy.init_state(4, 300, device=dev)
+    for i in range(K):
+        p, ss, ag, _ = round_fn(p, ss, ag, {"t": batches["t"][i]}, tau_up[i], tau_dd[i], A)
+    scan = make_scan_round_fn(loss_fn, sgd(0.1), sopt, rc)
+    gen = strategy.init_state(4, 300, device=dev)
+    sp, _, sag, _ = scan(p0, sopt.init(p0), gen, batches, tau_up, tau_dd, A)
+    assert sag[0] is gen[0] and scan.graph is not None
+    assert torch.equal(sag[0].get_state(), ag[0].get_state())
+    assert torch.equal(sp["x"], p["x"])
+    # the next draws agree as well
+    assert torch.equal(torch.rand(8, generator=sag[0], device=dev),
+                       torch.rand(8, generator=ag[0], device=dev))

@@ -227,8 +227,10 @@ def test_quantized_segment_path_matches_the_reference_row_stream():
     A, tau_up, tau_dd, _ = _round_inputs(n, 1, seed=13)
     strategy = strategies.get("quantized", codec="int8", fused="kernel")
     state = strategy.init_state(n, 16 * 32 + 10 + 9)
+    start = state[0].get_state()
     got, _ = strategy.aggregate_tree(deltas, *(torch.from_numpy(a) for a in (tau_up, tau_dd, A)),
                                      state, ExecutionContext(n_clients=n, segment_d=1))
+    state[0].set_state(start)  # the encode advanced the codec's generator: rewind it
     (qs, scale), _ = strategy.codec.encode_segments(
         flatten.ravel_stacked_segments(deltas, dtype=torch.float32), state[0])
     w = (tau_up @ (A * tau_dd.T) / n).astype(np.float32)

@@ -122,7 +122,7 @@ def test_quantized_identity_tracks_reference(reference, model):
 
 
 def test_unported_options_raise():
-    for kw in (dict(chunk=4), dict(mode="client_sequential"), dict(mode="async"),
+    for kw in (dict(ckpt_every=5), dict(mode="client_sequential"), dict(mode="async"),
                dict(channel="mobility"), dict(adaptive=True), dict(telemetry=True),
                dict(metrics_dir="m"), dict(profile_dir="p"), dict(ckpt_dir="c"),
                dict(resume_from="c"), dict(strategy="multihop"), dict(strategy="async_colrel")):

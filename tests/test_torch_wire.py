@@ -88,15 +88,26 @@ def test_int8_stochastic_rounding_unbiased(bits):
 
 
 def test_int8_state_is_explicit_and_advances():
+    """The codec state is a generator seeded from ``seed``: an encode
+    advances it in place and returns it, the same seed gives the same draws,
+    and the advanced state draws fresh noise."""
     x = torch.from_numpy(_stack(seed=4))
     codec = wire.get("int8", seed=5)
     st = codec.init_state(*x.shape)
-    assert st == (5, 0)
+    assert isinstance(st, torch.Generator) and st.device.type == "cpu"
+    assert st.initial_seed() == 5
+    start = st.get_state()
     (q1, _), nxt = codec.encode(x, st)
-    (q2, _), _ = codec.encode(x, st)
-    assert torch.equal(q1, q2) and nxt == (5, 1)
+    assert nxt is st and not torch.equal(st.get_state(), start)
+    (q2, _), _ = codec.encode(x, codec.init_state(*x.shape))
+    assert torch.equal(q1, q2)
+    after_one = nxt.get_state()
     (q3, _), _ = codec.encode(x, nxt)
     assert not torch.equal(q1, q3)
+    # restoring the state replays the draw
+    nxt.set_state(after_one)
+    (q4, _), _ = codec.encode(x, nxt)
+    assert torch.equal(q3, q4)
 
 
 def test_encode_segments_scale_is_the_monolithic_scale():
@@ -153,24 +164,25 @@ def _deltas(n, seed):
 
 
 def test_quantized_kernel_path_matches_the_dequant_oracle():
-    """Monolithic kernel path vs ``fused=False`` on the same codec state:
+    """Monolithic kernel path vs ``fused=False`` from the same codec state:
     the same q, summed in another order (atol 1e-5); the segment path draws
-    another realization but keeps the scale and advances the state alike."""
+    another realization but keeps the scale and advances the state alike
+    (the generator ends in the same state)."""
     n = 8
     deltas = _deltas(n, seed=9)
     tu, td, A = map(torch.from_numpy, _taus(n, seed=10))
     ctx = ExecutionContext(n_clients=n)
     kernel = strategies.get("quantized", codec="int8", fused="kernel")
     oracle = strategies.get("quantized", codec="int8")
-    st = kernel.init_state(n, 16 * 32 + 8 + 9)
-    gk, stk = kernel.aggregate_tree(deltas, tu, td, A, st, ctx)
-    go, sto = oracle.aggregate_tree(deltas, tu, td, A, st, ctx)
-    assert stk == sto == ((0, 1), ())
+    d = 16 * 32 + 8 + 9
+    gk, stk = kernel.aggregate_tree(deltas, tu, td, A, kernel.init_state(n, d), ctx)
+    go, sto = oracle.aggregate_tree(deltas, tu, td, A, oracle.init_state(n, d), ctx)
+    assert torch.equal(stk[0].get_state(), sto[0].get_state()) and stk[1] == sto[1] == ()
     for a, b in zip(tree.leaves(gk), tree.leaves(go)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL, rtol=0)
-    gs, sts = kernel.aggregate_tree(deltas, tu, td, A, st, ExecutionContext(n_clients=n,
-                                                                           segment_d=1))
-    assert sts == stk
+    gs, sts = kernel.aggregate_tree(deltas, tu, td, A, kernel.init_state(n, d),
+                                    ExecutionContext(n_clients=n, segment_d=1))
+    assert torch.equal(sts[0].get_state(), stk[0].get_state()) and sts[1] == ()
     for a, b in zip(tree.leaves(gs), tree.leaves(go)):
         assert a.shape == b.shape and bool(torch.isfinite(a).all())
 
