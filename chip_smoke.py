@@ -59,6 +59,22 @@ each of which fails the run by raising:
    launches in the trace against captured x replays); and one chunk with
    the taus drawn inside the captured round (``no_trace=True``) on the
    static and the Markov channel;
+4c. the other round modes and async relaying, on cifar_cnn_full at the
+   paper's widths from one init: three rounds of client_sequential held to
+   phase 4's per_client collapse run, and of weighted_grad at T=1 held to
+   per_client at T=1 (participation, uplink_bits and weight_sum equal,
+   params within MODE_REL_L2), each once more as one chunk of three,
+   bitwise; three rounds of async colrel under Markov blockage (T=1)
+   through the kernel (kernel 1 once a round), segmented (kernel 2 once a
+   round, over the whole staging buffer) and plain paths, ages and
+   staleness metrics bitwise equal across them, each once more as one
+   chunk and with no_trace, bitwise with all 8 metrics; a zero-blockage
+   round bitwise equal to sync colrel's; three async rounds of the n=1024
+   population through kernel 8; seconds a round per round and chunked
+   (K=4) of client_sequential, weighted_grad (T=1), per_client (T=1) and
+   the async kernel path (T=8) beside phase 4b's colrel kernel path; and
+   weighted_flat against weighted_grad on jamba's smoke config without
+   experts, one round;
 5. times of each kernel at the main path's shapes beside its bound, its
    plain version and one PyTorch call computing the same product where
    there is one; kernels 2, 5 and 9 as the segmented paths launch them, one
@@ -152,6 +168,21 @@ PARAM_ATOL = 1e-4
 # One aggregation of identical inputs is held at AGG_ATOL above.
 STRATEGY_PARAM_ATOL = 1e-3
 N_LEAVES, D_FULL = 61, 272282  # cifar_cnn_full's parameter tree
+# Phase 4c: client_sequential against per_client's collapse (T=8), and
+# weighted_grad against per_client at T=1, params after 3 rounds by
+# relative L2.  The modes sum the same client deltas or gradients in
+# another order (and weighted_grad applies the weight decay once where the
+# collapse weights it by the realized weight sum, 1e-4 x lr x (sum w - 1)
+# of the params a round).  On the CPU (one thread, no TF32) at
+# cifar_cnn_full they read 3.3e-6 and 5.2e-6 (tools/mode_agreement.py);
+# the limit is ~100x the larger, for TF32 convolutions' amplification of
+# last-bit differences on the card.
+MODE_REL_L2 = 5e-4
+# async relaying in phase 4c: gamma 0.8 without the relay rescue, so that
+# the ages grow under fig2b's Markov blockage; its checks at T = 1 (the
+# async carry and aggregation do not depend on T; T = 8 would take 8x the
+# local SGD of the eleven async runs), its timing at T = 8
+ASYNC_OPTIONS = {"gamma": 0.8, "opportunistic": False}
 # Kernel 10 against its plain version (the dense softmax): the reference's
 # bound for its kernel in f32 (tests/test_kernels.py:52), and 2e-2 in bf16
 # (the output is rounded to bf16 on both sides), compared in f32.
@@ -977,7 +1008,7 @@ def main():
         r = params["x"] - batch["t"][0]
         return 0.5 * r @ (H @ r), {}
 
-    def population_exp(fused):
+    def population_exp(fused, **trainer_kw):
         rng = np.random.default_rng(7)
         clients = [ClientDataset({"t": rng.normal(size=(ROUNDS, P_D)).astype(np.float32)},
                                  batch_size=1, seed=i) for i in range(P_N)]
@@ -985,7 +1016,8 @@ def main():
         trainer = FLTrainer(quad_loss, {"x": torch.zeros(P_D, device=dev)}, None, pAb, clients,
                             sgd(0.1), sgd_momentum(1.0, beta=0.9), local_steps=1,
                             strategy=strategy,
-                            channel=ClusteredStaticChannel(pmodel, seed=0, block=ROUNDS))
+                            channel=ClusteredStaticChannel(pmodel, seed=0, block=ROUNDS),
+                            **trainer_kw)
         return Experiment(spec=ExperimentSpec(model="quadratic"), trainer=trainer,
                           link_model=pmodel, A=pAb, strategy=strategy)
 
@@ -1034,6 +1066,23 @@ def main():
     def short(counts):
         return {k.removesuffix("_cuda"): v for k, v in counts.items()}
 
+    def same_run(label, ref, exp):
+        """Two runs' round metrics (every key the round returns), params,
+        server state and strategy state, bitwise."""
+        rm, em = ref.trainer.round_metrics, exp.trainer.round_metrics
+        check(list(rm) == list(em), f"{label}: metric keys {list(em)} against {list(rm)}")
+        for k, x in rm.items():
+            y = em[k]
+            check(len(x) == len(y) == ROUNDS and all(
+                u == v or (math.isnan(u) and math.isnan(v)) for u, v in zip(x, y)),
+                f"{label}: {k} {y} differs from {x}")
+        for state in ("params", "server_state", "agg_state"):
+            for a, b in zip(tree.leaves(getattr(ref.trainer, state)),
+                            tree.leaves(getattr(exp.trainer, state))):
+                same = (torch.equal(a.get_state(), b.get_state())
+                        if isinstance(a, torch.Generator) else torch.equal(a, b))
+                check(same, f"{label}: {state} differs")
+
     def drive_chunked(label, ref, make, expect):
         """``make()``'s path as one chunk of ROUNDS rounds, every launch count
         set to 0 just before and read just after: the counts are the eager
@@ -1058,20 +1107,10 @@ def main():
               f"{label}: captured launches {captured}, warm-up {warm}, expected one of {expect}")
         check(counts == {k: warm[k] + captured[k] for k in captured},
               f"{label}: counted launches {counts} are not the warm-up's and the capture's")
-        for field in ("loss", "participation", "uplink_bits", "weight_sums"):
-            x, y = getattr(ref.log, field), getattr(exp.log, field)
-            check(len(x) == len(y) == ROUNDS and all(
-                u == v or (math.isnan(u) and math.isnan(v)) for u, v in zip(x, y)),
-                f"{label}: chunked {field} {y} differs from per-round {x}")
-        for state in ("params", "server_state", "agg_state"):
-            for a, b in zip(tree.leaves(getattr(ref.trainer, state)),
-                            tree.leaves(getattr(exp.trainer, state))):
-                same = (torch.equal(a.get_state(), b.get_state())
-                        if isinstance(a, torch.Generator) else torch.equal(a, b))
-                check(same, f"{label}: chunked {state} differs from per-round")
+        same_run(f"{label}: chunked", ref, exp)
         print(f"[chunk] {label}: {ROUNDS} rounds as one chunk, bitwise equal to the per-round run "
-              f"(params, server state, strategy state, loss, participation, uplink_bits, "
-              f"weight_sum); kernel launches a chunk "
+              f"(params, server state, strategy state, every round metric: "
+              f"{', '.join(exp.trainer.round_metrics)}); kernel launches a chunk "
               f"{ {k: v * ROUNDS for k, v in captured.items()} } (captured {captured} a round x "
               f"{ROUNDS} replays; the eager warm-up round {warm}); {engine_line(scan)}; "
               f"chunk {secs:.2f} s [{card}]")
@@ -1183,6 +1222,221 @@ def main():
               f"{secs:.2f} s [{card}]")
         del exp, scan
         torch.cuda.empty_cache()
+
+    # -- 4c. the other round modes and async relaying -------------------------
+    # cifar_cnn_full at the paper's widths (n=10, d=272,282) from one init, on
+    # the same batches and taus; the mode and async checks at T=1 and the
+    # timings at the paper's T=8 where the path has a T (see MODE_REL_L2)
+    t4c = time.perf_counter()
+    from repro_torch.fl.round import ASYNC_METRIC_KEYS, RoundConfig, make_round_fn
+
+    def full_spec(**kw):
+        return lambda: build_experiment(ExperimentSpec(model="cifar_cnn_full", **kw))
+
+    def rel_l2_params(a, b):
+        num = sum(float(torch.sum((x - y).double() ** 2))
+                  for x, y in zip(tree.leaves(a.params), tree.leaves(b.params)))
+        return math.sqrt(num / sum(float(torch.sum(y.double() ** 2))
+                                   for y in tree.leaves(b.params)))
+
+    def held_to(label, exp, ref, tol):
+        """Participation, uplink_bits and weight_sum equal, params within
+        ``tol`` relative L2."""
+        for field in ("participation", "uplink_bits", "weight_sums"):
+            check(getattr(exp.log, field) == getattr(ref.log, field),
+                  f"{label}: {field} {getattr(exp.log, field)} != {getattr(ref.log, field)}")
+        r = rel_l2_params(exp, ref)
+        check(r <= tol, f"{label}: params relative L2 {r:.3e} > {tol}")
+        print(f"[modes] {label}: participation, uplink_bits and weight_sum equal; params "
+              f"relative L2 {r:.3e} (limit {tol}); loss {exp.log.loss} vs {ref.log.loss}")
+
+    # client_sequential against the per_client colrel collapse path of phase 4
+    seq_make = full_spec(mode="client_sequential")
+    seq_exp, _ = drive("client_sequential", "colrel", {}, 0, expect={}, make=seq_make)
+    held_to("client_sequential vs per_client collapse", seq_exp, col_exp, MODE_REL_L2)
+    # weighted_grad against per_client at T = 1
+    wg_make = full_spec(mode="weighted_grad", local_steps=1)
+    pc1_make = full_spec(strategy_options={"fused": "collapse"}, local_steps=1)
+    wg_exp, _ = drive("weighted_grad T=1", "colrel", {}, 0, expect={}, make=wg_make)
+    pc1_exp, _ = drive("per_client T=1 collapse", "colrel", {"fused": "collapse"}, 0, expect={},
+                       make=pc1_make)
+    held_to("weighted_grad vs per_client at T=1", wg_exp, pc1_exp, MODE_REL_L2)
+    drive_chunked("client_sequential", seq_exp, seq_make, set())
+    drive_chunked("weighted_grad T=1", wg_exp, wg_make, set())
+    del wg_exp, pc1_exp
+    print(f"[modes] the round modes' checks took {time.perf_counter() - t4c:.1f} s")
+    t_async = time.perf_counter()
+
+    # async colrel under Markov blockage without the relay rescue, so that
+    # ages grow: the kernel, segmented and plain paths
+    async_kw = dict(mode="async", async_options=ASYNC_OPTIONS, channel="markov", local_steps=1)
+    async_paths = {"kernel": (dict(strategy_options={"fused": "kernel"}), {"fused_aggregate"}),
+                   "segmented": (dict(strategy_options={"fused": "kernel"}, segment_d=1),
+                                 {"row_stream"}),
+                   "plain": (dict(), set())}
+    async_runs = {}
+    for label, (kw, expect) in async_paths.items():
+        make = full_spec(**async_kw, **kw)
+        async_runs[label] = (drive(f"async {label}", "async_colrel", ASYNC_OPTIONS,
+                                   kw.get("segment_d", 0), channel="markov",
+                                   expect={k: ROUNDS for k in expect}, make=make)[0], make, expect)
+    a_k = async_runs["kernel"][0]
+    ages = {k: e.trainer.agg_state["age"] for k, (e, _, _) in async_runs.items()}
+    check(max(a_k.trainer.round_metrics["max_age"]) > 0,
+          f"async: no age grew {a_k.trainer.round_metrics['max_age']}")
+    for label in ("segmented", "plain"):
+        other = async_runs[label][0]
+        check(torch.equal(ages[label], ages["kernel"]), f"async {label}: ages differ")
+        for k in ASYNC_METRIC_KEYS:
+            check(other.trainer.round_metrics[k] == a_k.trainer.round_metrics[k],
+                  f"async {label}: {k} differs from the kernel path's")
+    compare("async kernel", a_k, (("segmented", async_runs["segmented"][0], PARAM_ATOL),
+                                  ("fused=False", async_runs["plain"][0], PARAM_ATOL)))
+    print(f"[async] ages after {ROUNDS} rounds {ages['kernel'].tolist()}, equal on every path; "
+          + "; ".join(f"{k} {a_k.trainer.round_metrics[k]}" for k in ASYNC_METRIC_KEYS)
+          + ", bitwise equal on every path")
+
+    # one zero-blockage round (all-ones tau_up into the round function)
+    # through the kernel path against sync colrel's kernel round, from the
+    # async kernel run's params, fresh optimizer and strategy states
+    zt = a_k.trainer
+    z_sync = make_round_fn(*zt._opts, RoundConfig(n_clients=n, local_steps=1,
+                                                 aggregation=strategies.get("colrel",
+                                                                            fused="kernel")))
+    zb = {k: v[0] for k, v in zt._stack_batches(1).items()}
+    z_dd = torch.as_tensor(zt.channel.tau_for_round(0)[1], dtype=torch.float32, device=dev)
+    z_up = torch.ones(n, device=dev)
+    z_opt = zt._opts[2]
+    zp, _, _, zm = zt._round_fn(zt.params, z_opt.init(zt.params),
+                                zt.strategy.init_state(n, d_full, device=dev), zb, z_up, z_dd,
+                                zt.A)
+    sp, _, _, sm = z_sync(zt.params, z_opt.init(zt.params), (), zb, z_up, z_dd, zt.A)
+    check(all(torch.equal(a, b) for a, b in zip(tree.leaves(zp), tree.leaves(sp))),
+          "zero-blockage async round: params differ from sync colrel's")
+    check(all(torch.equal(zm[k], sm[k]) for k in ("loss", "delta_norm", "participation",
+                                                  "uplink_bits"))
+          and float(zm["max_age"]) == 0.0, "zero-blockage async round: metrics differ")
+    print("[async] a zero-blockage round through the kernel path: params, loss, delta_norm, "
+          "participation and uplink_bits bitwise equal to sync colrel's kernel round; every age 0")
+    del z_sync, zb, zp, sp
+
+    # each async path once more as one chunk of ROUNDS, and with no_trace
+    # (taus drawn inside the captured round) per round against one chunk
+    for label, (ref, make, expect) in async_runs.items():
+        drive_chunked(f"async {label}", ref, make, expect)
+    for label, (_, make, expect) in async_runs.items():
+        per, one = make(), make()
+        per.run(ROUNDS, no_trace=True)
+        one.run(ROUNDS, chunk=ROUNDS, no_trace=True)
+        same_run(f"async {label} no_trace", per, one)
+        captured = short(one.trainer._sampled_scan_fn.stats["captured_launches"])
+        check(captured == {k: 1 for k in expect}, f"async {label} no_trace: captured {captured}")
+        print(f"[async] {label} no_trace: {ROUNDS} rounds one per call against one chunk, bitwise "
+              f"with all {len(one.trainer.round_metrics)} metrics; ages "
+              f"{one.trainer.round_metrics['max_age']} (max); launches a round {captured} [{card}]")
+        del per, one
+    torch.cuda.empty_cache()
+
+    # the n=1024 population under async relaying: the block form of the
+    # delivery mask at C=64 x m=16, through kernel 8
+    pop_async, _ = drive("population async", "async_clustered", ASYNC_OPTIONS, 0,
+                         channel="ClusteredStaticChannel n=1024 C=64 m=16",
+                         expect={"block_fused_aggregate": ROUNDS},
+                         make=lambda: population_exp("kernel", mode="async",
+                                                     async_options=ASYNC_OPTIONS),
+                         layout=(1, P_D))
+    pm = pop_async.trainer.round_metrics
+    check(max(pm["max_age"]) > 0, f"population async: no age grew {pm['max_age']}")
+    print(f"[async] population n=1024 (C=64 x m=16): max_age {pm['max_age']}, mean_age "
+          f"{pm['mean_age']}, stale_frac {pm['stale_frac']}")
+    del pop_async
+    print(f"[async] the async checks took {time.perf_counter() - t_async:.1f} s")
+
+    # seconds a round, per round and chunked at K = CHUNK_K, beside the
+    # per_client colrel kernel path's figures of phase 4b in this call
+    def chunked_round_s(make):
+        """The first chunk's s/round (warm-up, capture, instantiate and K
+        replays) and the second's (K replays)."""
+        exp = make()
+        out = []
+        for _ in range(2):
+            t = time.perf_counter()
+            exp.run(CHUNK_K, chunk=CHUNK_K)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) / CHUNK_K)
+        del exp
+        torch.cuda.empty_cache()
+        return out
+
+    def rounds_s(make):
+        exp = make()
+        out = []
+        for _ in range(ROUNDS):
+            t = time.perf_counter()
+            exp.run(1)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return out
+
+    t_timed = time.perf_counter()
+    timed = {
+        "per_client colrel kernel T=8": (per_a + per_b, [None, ch_a, ch_b]),
+        "client_sequential T=8": (round_s["client_sequential"], chunked_round_s(seq_make)),
+        "async colrel kernel T=8": (rounds_s(full_spec(**dict(async_kw, local_steps=8),
+                                                          strategy_options={"fused": "kernel"})),
+                                    chunked_round_s(full_spec(**dict(async_kw, local_steps=8),
+                                                              strategy_options={"fused": "kernel"}))),
+        "weighted_grad T=1": (round_s["weighted_grad T=1"], chunked_round_s(wg_make)),
+        "per_client collapse T=1": (round_s["per_client T=1 collapse"],
+                                    chunked_round_s(pc1_make)),
+    }
+    for label, (per, (first, *steady)) in timed.items():
+        print(f"[modes] s/round {label}: per round {[round(x, 4) for x in per]} (median "
+              f"{statistics.median(per):.4f}), chunked K={CHUNK_K} "
+              f"{[round(x, 4) for x in steady]} (mean {statistics.mean(steady):.4f})"
+              + ("" if first is None else f", the first chunk (with the capture) {first:.4f}")
+              + f" [{card}]")
+    print(f"[modes] the timings took {time.perf_counter() - t_timed:.1f} s")
+
+    # weighted_flat against weighted_grad on jamba's smoke config without
+    # experts (one round each, the inputs of the reference's test)
+    t_wf = time.perf_counter()
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.connectivity import sample_round
+    from repro_torch.models import build as build_model
+
+    wf_cfg = get_arch(JAMBA).smoke().replace(moe_every=0)
+    wf_bundle = build_model(wf_cfg)
+    wf_params = wf_bundle.init(torch.Generator(device=dev).manual_seed(0))
+    wn, wB, wS = 4, 2, 32
+    wrng = np.random.default_rng(0)
+    wtu, wtd = sample_round(topology.fully_connected(wn, 0.6, p_c=0.8), wrng)
+    wtoks = torch.as_tensor(wrng.integers(0, wf_cfg.vocab_size, size=(wn, wB, wS + 1)),
+                            device=dev)
+    wf_out = {}
+    for mode in ("weighted_grad", "weighted_flat"):
+        rc = RoundConfig(n_clients=wn, local_steps=1, mode=mode,
+                         aggregation=strategies.get("colrel", fused="collapse"))
+        server = sgd_momentum(1.0, beta=0.0)
+        fn = make_round_fn(wf_bundle.loss_fn, sgd(0.1), server, rc)
+        b = {"tokens": wtoks[..., :-1], "labels": wtoks[..., 1:]}
+        if mode == "weighted_flat":
+            b = {k: v.reshape(wn * wB, wS) for k, v in b.items()}
+        wf_out[mode] = fn(wf_params, server.init(wf_params), (), b,
+                          torch.as_tensor(wtu, dtype=torch.float32, device=dev),
+                          torch.as_tensor(wtd, dtype=torch.float32, device=dev),
+                          torch.eye(wn, device=dev) * 2.0)
+    wf_diff = max(float(((a - b).abs() - (2e-5 + 2e-4 * b.abs())).max())
+                  for a, b in zip(tree.leaves(wf_out["weighted_flat"][0]),
+                                  tree.leaves(wf_out["weighted_grad"][0])))
+    check(wf_diff <= 0, f"weighted_flat vs weighted_grad on jamba smoke: {wf_diff} past the limit")
+    print(f"[modes] weighted_flat vs weighted_grad, jamba smoke (moe_every=0), one round: params "
+          f"within atol 2e-5 + rtol 2e-4; losses {float(wf_out['weighted_flat'][3]['loss']):.6f} "
+          f"vs {float(wf_out['weighted_grad'][3]['loss']):.6f}")
+    del wf_out, wf_params, wf_bundle
+    torch.cuda.empty_cache()
+    print(f"[modes] weighted_flat's check took {time.perf_counter() - t_wf:.1f} s")
+    print(f"[modes] phase 4c wall {time.perf_counter() - t4c:.1f} s [{card}]")
 
     # -- 5. times at the main path's shapes --------------------------------
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2

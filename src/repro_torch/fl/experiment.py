@@ -41,7 +41,7 @@ from repro_torch.core.weights import (
 from repro_torch.data.partition import partition_iid, partition_sort_and_partition
 from repro_torch.data.pipeline import ClientDataset, make_federated_clients
 from repro_torch.data.synthetic import quadratic_problem, synthetic_cifar
-from repro_torch.fl.round import check_mode
+from repro_torch.fl.round import MODES
 from repro_torch.fl.trainer import FLTrainer, TrainLog, resolve_device, unported
 from repro_torch.models import cnn
 from repro_torch.optim import sgd, sgd_momentum
@@ -60,9 +60,15 @@ TOPOLOGIES: Dict[str, Callable[[], LinkModel]] = {
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
-    """Everything that defines one federated experiment; the fields and
-    defaults are the reference's.  Fields whose feature is not ported yet
-    raise ``NotImplementedError`` in :func:`build_experiment` when set.
+    """Everything that defines one federated experiment, with the
+    reference's fields and defaults (a test holds the two lists equal).
+    Fields whose feature is not ported yet raise ``NotImplementedError``
+    naming their ``ROADMAP.md`` item in :func:`build_experiment` when set
+    away from their defaults: ``adaptive`` (item 21; ``reopt_every`` is
+    accepted and stays inert until then), the telemetry fields
+    ``telemetry``, ``metrics_dir``, ``profile_dir``, ``profile_start``,
+    ``profile_rounds``, ``log_every`` (item 14) and the checkpointing
+    fields (item 15).
 
     Task: ``model`` (``"cifar_cnn"``, ``"cifar_cnn_full"``,
     ``"quadratic"``), ``topology`` (a key of :data:`TOPOLOGIES` or a
@@ -74,19 +80,24 @@ class ExperimentSpec:
     (``"auto"``, ``"copt"``, ``"fedavg"``, ``"importance"`` or an
     ``(n, n)`` array), ``copt_sweeps``, ``mode``, ``local_steps`` (the
     paper's T), ``rounds``, ``chunk`` (rounds per call of the chunked
-    engine; 1 = the per-round loop), ``segment_d`` (flat-dim threshold
-    for segment-streaming aggregation; 0 = monolithic).
+    engine; 1 = the per-round loop), ``async_options``
+    (:class:`~repro_torch.strategies.AsyncRelayStrategy` kwargs for
+    ``mode="async"``: ``gamma``, ``opportunistic``), ``segment_d``
+    (flat-dim threshold for segment-streaming aggregation; 0 =
+    monolithic), ``donate`` (whether the round may write the carry in
+    place; see :class:`~repro_torch.fl.trainer.FLTrainer`).
 
     Channel: ``channel`` (a preset of
     :data:`repro_torch.configs.channels.CHANNEL_PRESETS`: ``static``,
-    ``markov_iid``, ``markov``, ``markov_heavy``), ``adaptive``.
+    ``markov_iid``, ``markov``, ``markov_heavy``), ``adaptive``,
+    ``reopt_every``.
 
     Optimization (None = model-kind / paper defaults): ``lr``,
     ``weight_decay``, ``server_momentum``, ``batch_size``, ``seed``.
 
     Observability and checkpointing: ``telemetry``, ``metrics_dir``,
-    ``profile_dir``, ``ckpt_dir``, ``ckpt_every``, ``ckpt_keep``,
-    ``resume_from``.
+    ``profile_dir``, ``profile_start``, ``profile_rounds``, ``log_every``,
+    ``ckpt_dir``, ``ckpt_every``, ``ckpt_keep``, ``resume_from``.
     """
 
     # -- task ----------------------------------------------------------
@@ -101,13 +112,16 @@ class ExperimentSpec:
     alpha: Union[str, np.ndarray] = "auto"
     copt_sweeps: int = 30
     mode: str = "per_client"
+    async_options: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     local_steps: Optional[int] = None
     rounds: int = 200
     chunk: int = 1
     segment_d: int = 0
+    donate: bool = True
     # -- channel -------------------------------------------------------
     channel: str = "static"
     adaptive: bool = False
+    reopt_every: int = 50
     # -- optimization --------------------------------------------------
     lr: Optional[float] = None
     weight_decay: Optional[float] = None
@@ -118,6 +132,9 @@ class ExperimentSpec:
     telemetry: bool = False
     metrics_dir: Optional[str] = None
     profile_dir: Optional[str] = None
+    profile_start: int = 0
+    profile_rounds: int = 4
+    log_every: int = 0
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 0
     ckpt_keep: int = 3
@@ -156,14 +173,17 @@ class Experiment:
 
 
 def _check_ported(spec: ExperimentSpec) -> None:
-    check_mode(spec.mode)
+    if spec.mode not in MODES + ("async",):
+        raise ValueError(f"unknown mode {spec.mode!r}; have {MODES + ('async',)}")
     preset = CHANNEL_PRESETS.get(spec.channel)
     if preset is not None and preset.kind == "mobility":
         raise unported(f"channel {spec.channel!r}", "item 9 (channels: mobility)")
     if spec.adaptive:
         raise unported("adaptive alpha re-optimization", "item 21 (adaptive alpha)")
-    if spec.telemetry or spec.metrics_dir is not None or spec.profile_dir is not None:
-        raise unported("telemetry (telemetry, metrics_dir, profile_dir)", "item 14 (telemetry)")
+    if (spec.telemetry or spec.metrics_dir is not None or spec.profile_dir is not None
+            or spec.profile_start != 0 or spec.profile_rounds != 4 or spec.log_every != 0):
+        raise unported("telemetry (telemetry, metrics_dir, profile_dir, profile_start, "
+                       "profile_rounds, log_every)", "item 14 (telemetry)")
     if (spec.ckpt_dir is not None or spec.resume_from is not None
             or spec.ckpt_every != 0 or spec.ckpt_keep != 3):
         raise unported("checkpointing (ckpt_*, resume_from)", "item 15 (checkpointing)")
@@ -306,6 +326,7 @@ def build_experiment(spec: ExperimentSpec, device=None) -> Experiment:
     trainer = FLTrainer(
         loss_fn, init_params, link_model, A, clients, client_opt, server_opt,
         local_steps=local_steps, strategy=strategy, mode=spec.mode,
+        async_options=dict(spec.async_options) or None, donate=spec.donate,
         segment_d=spec.segment_d, seed=spec.seed, eval_fn=eval_fn,
         channel=channel, device=dev,
     )

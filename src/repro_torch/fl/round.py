@@ -6,9 +6,25 @@
 3. the PS applies the round's aggregation strategy and the server
    optimizer (global momentum in the paper's experiments).
 
-Only the ``per_client`` mode is ported: it materializes the per-client
-update stack.  The reference vmaps over clients; here the clients run in
-a plain loop and their deltas are stacked on a new leading axis.
+Execution modes, as the reference's:
+
+* ``per_client`` — materializes the per-client update stack; the only
+  mode open to stateful or non-collapsible strategies.  The reference
+  vmaps over clients; here the clients run in a plain loop and their
+  deltas are stacked on a new leading axis.
+* ``client_sequential`` — the clients in order, accumulating the
+  strategy's scalar collapse ``sum_i w_i delta_i`` over zero f32 leaves:
+  one model copy of accumulator, no update stack.
+* ``weighted_grad`` — the T = 1 collapse: one backward pass through
+  ``sum_i w_i loss_i`` over the clients' ``(n, B, ...)`` batches, then
+  one client optimizer step (ColRel as weighted data-parallel SGD).
+* ``weighted_flat`` — the same gradient with the client axis folded into
+  the batch: each sequence's loss weighted by its client's ``w / B``
+  through the loss's ``ce_weight``.
+
+Async relaying (:func:`make_async_round_fn`) is the ``per_client`` round
+over an :class:`~repro_torch.strategies.AsyncRelayStrategy`, whose age
+vector and staging buffer ride ``agg_state``, with three more metrics.
 
 Multi-round execution: :func:`make_scan_round_fn` runs K rounds of the
 same round body per call, the chunked engine ``FLTrainer.run(chunk=K)``
@@ -37,22 +53,18 @@ Params = Any
 
 StrategySpec = Union[str, AggregationStrategy]
 
-# ROADMAP.md items that bring the reference's other round modes
-UNPORTED_MODES = {
-    "client_sequential": "queue 1, item 19 (other round modes)",
-    "weighted_grad": "queue 1, item 19 (other round modes)",
-    "weighted_flat": "queue 1, item 19 (other round modes)",
-    "async": "queue 1, item 13 (async relaying)",
-}
+MODES = ("per_client", "client_sequential", "weighted_grad", "weighted_flat")
+
+#: the metrics of every round body, in the order of the chunked engine's
+#: ``(K, len(metric_keys))`` device buffer
+METRIC_KEYS = ("loss", "delta_norm", "participation", "uplink_bits", "weight_sum")
+#: the async round's staleness metrics, after :data:`METRIC_KEYS`
+ASYNC_METRIC_KEYS = ("mean_age", "max_age", "stale_frac")
 
 
 def check_mode(mode: str) -> None:
-    if mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"round mode {mode!r} is not ported to repro_torch yet: "
-            f"ROADMAP.md {UNPORTED_MODES[mode]}")
-    if mode != "per_client":
-        raise ValueError(f"unknown mode {mode!r}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; have {MODES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,29 +120,90 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
     """Returns ``round(params, server_state, agg_state, batches, tau_up,
     tau_dd, A) -> (params, server_state, agg_state, metrics)``.
 
-    ``batches``: dict with leaves ``(n_clients, T, B, ...)`` on the
-    params' device.  ``metrics`` holds 0-d tensors under the reference's
-    keys: ``loss``, ``delta_norm``, ``participation``, ``uplink_bits``,
-    ``weight_sum``.
+    ``batches``: dict with leaves on the params' device, ``(n_clients, T,
+    B, ...)`` for ``per_client`` and ``client_sequential``, ``(n_clients,
+    B, ...)`` for ``weighted_grad`` (T = 1 collapsed) and ``(n_clients *
+    B, ...)`` for ``weighted_flat``.  ``metrics`` holds 0-d tensors under
+    the reference's keys, :data:`METRIC_KEYS`; the returned function
+    carries them as its ``metric_keys``.
+
+    Outside ``per_client`` the round consumes only the strategy's scalar
+    collapse, so a stateful or non-collapsible strategy raises
+    ``ValueError`` here: its state would freeze at ``init_state``.
     """
     strategy = rc.resolve_strategy()
     ctx = rc.execution_context()
+    if rc.mode != "per_client" and (strategy.stateful or not strategy.scalar_collapsible):
+        raise ValueError(
+            f"strategy {strategy.name!r} needs the per_client mode: only it materializes "
+            f"the update stack that stateful or non-scalar-collapsible strategies require "
+            f"(got mode={rc.mode!r})")
+
+    def weighted_backward(params, weighted_loss):
+        """One backward pass through ``weighted_loss(p) -> (total, losses)``
+        and one client optimizer step from a fresh state: the f32 delta and
+        the losses."""
+        p = tree.map(lambda x: x.detach().requires_grad_(), params)
+        leaves, treedef = tree.flatten(p)
+        total, losses = weighted_loss(p)
+        grads = tree.unflatten(treedef, list(torch.autograd.grad(total, leaves)))
+        upd, _ = client_opt.update(grads, client_opt.init(params), params)
+        return tree.map(lambda u: u.float(), upd), losses.detach()
 
     def round_fn(params, server_state, agg_state, batches, tau_up, tau_dd, A):
         # realized scalar weights (for ColRel the exact collapse
         # w_j = sum_i tau_i tau_ji alpha_ij / n), logged as weight_sum
-        w_scalar = strategy.weights(tau_up, tau_dd, A)
-        deltas, losses = [], []
-        for i in range(rc.n_clients):
-            delta, loss = _local_sgd(loss_fn, client_opt, params,
-                                     {k: v[i] for k, v in batches.items()})
-            deltas.append(delta)
-            losses.append(loss)
-        stacked = tree.map(lambda *ds: torch.stack(ds), *deltas)
-        del deltas
+        w = strategy.weights(tau_up, tau_dd, A)
+        if rc.mode == "per_client":
+            deltas, losses = [], []
+            for i in range(rc.n_clients):
+                delta, loss = _local_sgd(loss_fn, client_opt, params,
+                                         {k: v[i] for k, v in batches.items()})
+                deltas.append(delta)
+                losses.append(loss)
+            stacked = tree.map(lambda *ds: torch.stack(ds), *deltas)
+            del deltas
+            with torch.no_grad():
+                gdelta, agg_state = strategy.aggregate_tree(
+                    stacked, tau_up, tau_dd, A, agg_state, ctx)
+            mean_loss = torch.mean(torch.stack(losses))
+        elif rc.mode == "client_sequential":
+            # a running weighted sum over the clients in order, from zero
+            # f32 leaves: no update stack
+            gdelta = tree.map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                                    device=x.device), params)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=tau_up.device)
+            for i in range(rc.n_clients):
+                delta, loss = _local_sgd(loss_fn, client_opt, params,
+                                         {k: v[i] for k, v in batches.items()})
+                with torch.no_grad():
+                    gdelta = tree.map(lambda a, d: a + w[i] * d, gdelta, delta)
+                loss_sum = loss_sum + loss
+            mean_loss = loss_sum / rc.n_clients
+        elif rc.mode == "weighted_grad":
+            # T = 1: one backward pass over every client's batch with
+            # per-client loss weights (the clients in a loop building one
+            # graph; the reference vmaps them)
+            def weighted_loss(p):
+                losses = torch.stack([loss_fn(p, {k: v[i] for k, v in batches.items()})[0]
+                                      for i in range(rc.n_clients)])
+                return torch.sum(w * losses), losses
+
+            gdelta, losses = weighted_backward(params, weighted_loss)
+            mean_loss = torch.mean(losses)
+        else:  # weighted_flat
+            # the client axis folded into the batch: each sequence weighted
+            # by its client's w / B inside the loss (jnp.repeat repeats each
+            # element, as repeat_interleave does)
+            B_per = next(iter(batches.values())).shape[0] // rc.n_clients
+            seq_w = torch.repeat_interleave(w, B_per) / B_per
+
+            def weighted_loss(p):
+                loss = loss_fn(p, {**batches, "ce_weight": seq_w})[0]
+                return loss, loss
+
+            gdelta, mean_loss = weighted_backward(params, weighted_loss)
         with torch.no_grad():
-            gdelta, agg_state = strategy.aggregate_tree(
-                stacked, tau_up, tau_dd, A, agg_state, ctx)
             # the PS feeds the negative delta to the server optimizer as a
             # pseudo-gradient; with sgd_momentum(1, beta) this is exactly
             # the paper's PS momentum
@@ -141,22 +214,18 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
             d_flat = flatten.flat_spec(params).d
             bits_per_client = float(d_flat * strategy.wire_bits_per_coord(d_flat))
             metrics = {
-                "loss": torch.mean(torch.stack(losses)),
+                "loss": mean_loss,
                 "delta_norm": global_norm(gdelta),
                 "participation": participation,
                 "uplink_bits": participation * bits_per_client,
                 # a device-side fill: no host->device copy inside a captured round
-                "weight_sum": (torch.sum(w_scalar) if w_scalar is not None
+                "weight_sum": (torch.sum(w) if w is not None
                                else torch.full((), float("nan"), device=tau_up.device)),
             }
         return new_params, server_state, agg_state, metrics
 
+    round_fn.metric_keys = METRIC_KEYS
     return round_fn
-
-
-#: the per-round metrics of the chunked engine, in the order of its ``(K, 5)``
-#: device buffer
-METRIC_KEYS = ("loss", "delta_norm", "participation", "uplink_bits", "weight_sum")
 
 
 def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
@@ -176,12 +245,14 @@ def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Opt
       metrics)``; each round draws its taus with ``sample_fn(channel_state,
       gen)`` inside the round, so no tau tensor crosses from the host.
 
-    ``metrics`` maps each of :data:`METRIC_KEYS` to a ``(K,)`` device tensor.
+    ``metrics`` maps each of the round body's ``metric_keys`` (the five of
+    :data:`METRIC_KEYS`, eight for the async round) to a ``(K,)`` device
+    tensor.
 
     On the CPU the K rounds run as a plain loop over the round body.  On a
     CUDA device one round is captured as a CUDA graph and replayed K times:
-    the carry, the chunk's batches and taus, ``A`` and a ``(K, 5)`` metric
-    buffer live in static device buffers, and the body selects round i's
+    the carry, the chunk's batches and taus, ``A`` and a ``(K, len(metric_keys))``
+    metric buffer live in static device buffers, and the body selects round i's
     slot from a device round counter and advances it, so the host does
     nothing between replays.  Capture raises if the round cannot be
     captured; there is no eager fallback on the card.  Generators in the
@@ -190,7 +261,8 @@ def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Opt
     chunk's trajectory is bitwise the per-round loop's.
 
     The returned carry tensors are the engine's static buffers: the next
-    call overwrites them in place (the reference donates its carry).  A
+    call overwrites them in place (the reference donates its carry;
+    ``FLTrainer(donate=False)`` keeps clones instead).  A
     call with the same carry structure, shapes and generators and at most
     the captured K reuses the graph; anything else captures anew.  The
     statistics of the last capture are in ``scan.stats``.
@@ -270,7 +342,8 @@ class _RoundSlot:
             torch.empty((K, *t.shape[1:]), dtype=torch.float32, device=dev) for t in taus)
         self.A = A.clone()
         self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.metrics = torch.zeros((K, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
+        self.keys = round_fn.metric_keys
+        self.metrics = torch.zeros((K, len(self.keys)), dtype=torch.float32, device=dev)
         self.graph = None
         if dev.type == "cuda":
             self._capture(carry, xs, taus, A, K)
@@ -303,7 +376,7 @@ class _RoundSlot:
                                    f"{buf.dtype} to {v.shape} {v.dtype}")
             else:
                 buf.copy_(v)
-        self.metrics.index_copy_(0, i, torch.stack([m[k].float() for k in METRIC_KEYS])[None])
+        self.metrics.index_copy_(0, i, torch.stack([m[k].float() for k in self.keys])[None])
         i.add_(1)
 
     def _load(self, carry, xs, taus, A, K: int) -> None:
@@ -386,4 +459,49 @@ class _RoundSlot:
             self.stats["replays"] += K
         metrics = self.metrics[:K].clone()
         return (tree.unflatten(self.treedef, self.bufs),
-                {k: metrics[:, j] for j, k in enumerate(METRIC_KEYS)})
+                {k: metrics[:, j] for j, k in enumerate(self.keys)})
+
+
+def make_async_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
+                        rc: RoundConfig):
+    """The async round: :func:`make_round_fn`'s ``per_client`` round over an
+    async strategy (``async_colrel``, or an
+    :class:`~repro_torch.strategies.AsyncRelayStrategy` around the desired
+    inner scheme), whose age vector and staging buffer ride ``agg_state``.
+    Same signature and carry; the metrics add the post-delivery staleness
+    profile, :data:`ASYNC_METRIC_KEYS`:
+
+    * ``mean_age`` / ``max_age`` — the age vector's mean and max (rounds
+      since each client's update last reached the PS);
+    * ``stale_frac`` — the fraction of clients aggregated from a stale
+      update.
+
+    A sync strategy raises ``ValueError`` rather than running sync
+    semantics under the async name.
+    """
+    strategy = rc.resolve_strategy()
+    if not getattr(strategy, "is_async", False):
+        raise ValueError(
+            f"make_async_round_fn needs an async strategy (e.g. 'async_colrel'), got "
+            f"{strategy.name!r}; wrap it in AsyncRelayStrategy or use FLTrainer(mode='async')")
+    base = make_round_fn(loss_fn, client_opt, server_opt, rc)
+
+    def round_fn(params, server_state, agg_state, batches, tau_up, tau_dd, A):
+        params, server_state, agg_state, metrics = base(
+            params, server_state, agg_state, batches, tau_up, tau_dd, A)
+        age = agg_state["age"].float()
+        metrics = dict(metrics, mean_age=torch.mean(age), max_age=torch.max(age),
+                       stale_frac=torch.mean((age > 0).float()))
+        return params, server_state, agg_state, metrics
+
+    round_fn.metric_keys = METRIC_KEYS + ASYNC_METRIC_KEYS
+    return round_fn
+
+
+def make_async_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
+                             rc: RoundConfig, channel_sampler: Optional[Callable] = None):
+    """The chunked async engine: :func:`make_scan_round_fn`'s signatures
+    over :func:`make_async_round_fn`'s body; the age vector and staging
+    buffer are static buffers of the captured round, and the staleness
+    metrics come back ``(K,)`` like the others."""
+    return ScanRound(make_async_round_fn(loss_fn, client_opt, server_opt, rc), channel_sampler)

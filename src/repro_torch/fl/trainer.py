@@ -9,8 +9,11 @@ K times on the CUDA device): the chunk's batches come from one
 ``channel.trace``, and its metrics back with one device-to-host copy.  The
 trajectory is bitwise the per-round loop's: both consume the same channel
 and batch streams through the same round body.  ``no_trace=True`` draws the
-taus inside the round from the channel's ``scan_sampler``.  Options of the
-reference that this package does not have yet raise
+taus inside the round from the channel's ``scan_sampler``.
+``mode="async"`` (or an async strategy such as ``"async_colrel"``) runs
+staleness-weighted async relaying through
+:func:`~repro_torch.fl.round.make_async_round_fn` and its chunked twin.
+Options of the reference that this package does not have yet raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 Prefer building a trainer through
 :func:`repro_torch.fl.experiment.build_experiment`.
@@ -30,15 +33,24 @@ from repro_torch.channel.base import StaticChannel
 from repro_torch.core import flatten
 from repro_torch.core.connectivity import LinkModel
 from repro_torch.data.pipeline import ClientDataset, stack_chunk_batches
-from repro_torch.fl.round import RoundConfig, make_round_fn, make_scan_round_fn
+from repro_torch.fl.round import (
+    RoundConfig,
+    make_async_round_fn,
+    make_async_scan_round_fn,
+    make_round_fn,
+    make_scan_round_fn,
+)
 from repro_torch.optim import Optimizer
 
 Params = Any
 
 __all__ = ["TrainLog", "FLTrainer", "resolve_device", "unported"]
 
-_METRIC_FIELDS = (("loss", "loss"), ("participation", "participation"),
-                  ("uplink_bits", "uplink_bits"), ("weight_sum", "weight_sums"))
+# round metric -> its TrainLog field; the others (delta_norm, the async
+# staleness metrics) are kept in FLTrainer.round_metrics, as the
+# reference keeps them in its round events
+_LOG_FIELDS = {"loss": "loss", "participation": "participation",
+               "uplink_bits": "uplink_bits", "weight_sum": "weight_sums"}
 
 
 def unported(option: str, item: str) -> NotImplementedError:
@@ -99,15 +111,43 @@ class FLTrainer:
         channel=None,
         adaptive=None,
         telemetry: bool = False,
+        async_options: Optional[Dict[str, Any]] = None,
+        donate: bool = True,
         segment_d: int = 0,
         device=None,
     ):
+        """``mode="async"`` wraps a sync ``strategy`` in
+        :class:`~repro_torch.strategies.AsyncRelayStrategy` with
+        ``async_options`` (``gamma``, ``opportunistic``) and runs it as
+        ``per_client``; an async strategy runs async in any case.
+
+        ``donate=True`` (the reference's default) lets the round write the
+        carry in place: the chunked engine returns its static buffers and
+        overwrites them on the next chunk, and the memory strategy's kernel
+        paths and the segmented async path update their buffers in place.
+        So ``params``, ``server_state`` or ``agg_state`` read from the
+        trainer may change under the next round.  ``donate=False`` keeps
+        them: each round gets clones of the strategy state, and the
+        trainer keeps clones of the carry a chunk returns."""
         if adaptive is not None:
             raise unported("adaptive alpha re-optimization", "item 21 (adaptive alpha)")
         if telemetry:
             raise unported("telemetry", "item 14 (telemetry)")
         self.device = resolve_device(device)
         self.strategy = strategy_registry.resolve(strategy)
+        if mode == "async":
+            if getattr(self.strategy, "is_async", False):
+                if async_options:
+                    raise ValueError("strategy is already async; pass gamma/opportunistic "
+                                     "through the strategy spec, not async_options")
+            else:
+                self.strategy = strategy_registry.AsyncRelayStrategy(
+                    inner=self.strategy, **dict(async_options or {}))
+            mode = "per_client"
+        elif async_options:
+            raise ValueError("async_options requires mode='async'")
+        self.async_mode = getattr(self.strategy, "is_async", False)
+        self.donate = bool(donate)
         if channel is None:
             if link_model is None:
                 raise ValueError("provide link_model or channel")
@@ -128,7 +168,9 @@ class FLTrainer:
         self.server_state = server_opt.init(self.params)
         self.agg_state = self.strategy.init_state(n, flatten.flat_spec(self.params).d,
                                                   device=self.device)
-        self._round_fn = make_round_fn(loss_fn, client_opt, server_opt, self.rc)
+        make_fn = make_async_round_fn if self.async_mode else make_round_fn
+        self._make_scan_fn = make_async_scan_round_fn if self.async_mode else make_scan_round_fn
+        self._round_fn = make_fn(loss_fn, client_opt, server_opt, self.rc)
         self._opts = (loss_fn, client_opt, server_opt)
         self._scan_fn = None  # built on the first chunked run
         # no-trace mode: the in-scan sampler's engine and its carry
@@ -138,26 +180,40 @@ class FLTrainer:
         self._channel_gen = None
         self.round = 0
         self.log = TrainLog()
+        #: every metric the round returns, by its key, one float a round
+        self.round_metrics: Dict[str, List[float]] = {}
+
+    def _own(self, carry):
+        """``carry`` as the trainer keeps it: itself, or with ``donate=False``
+        clones of its tensors, which no later round writes."""
+        if self.donate:
+            return carry
+        return tree.map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, carry)
 
     def _to_device(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
 
     def _stack_batches(self, rounds: int) -> Dict[str, torch.Tensor]:
-        """``rounds`` rounds of every client's local-step batches,
-        ``(rounds, n, T, B, ...)`` on the device: one gather per client and
-        one host-to-device copy per leaf."""
+        """``rounds`` rounds of every client's local-step batches on the
+        device, ``(rounds, n, T, B, ...)``, or ``(rounds, n, B, ...)`` for
+        ``weighted_grad`` (its T = 1 collapse: the first step's batch; the
+        clients' streams still draw all T, as the reference's): one gather
+        per client and one host-to-device copy per leaf."""
         out = stack_chunk_batches(self.clients, self.rc.local_steps, rounds)
+        if self.rc.mode == "weighted_grad":
+            out = {k: np.ascontiguousarray(v[:, :, 0]) for k, v in out.items()}
         return {k: self._to_device(v) for k, v in out.items()}
 
     def _log_rounds(self, r: int, metrics: Dict[str, torch.Tensor]) -> None:
         """Append rounds ``r, r+1, ...`` from 0-d or ``(K,)`` metrics, with
         one device-to-host copy, widened to float64."""
-        values = torch.stack([metrics[k].reshape(-1) for k, _ in _METRIC_FIELDS])
-        values = values.cpu().double().tolist()
-        for i in range(len(values[0])):
-            self.log.rounds.append(r + i)
-            for (_, field), v in zip(_METRIC_FIELDS, values):
-                getattr(self.log, field).append(v[i])
+        keys = list(metrics)
+        values = torch.stack([metrics[k].reshape(-1) for k in keys]).cpu().double().tolist()
+        self.log.rounds.extend(range(r, r + len(values[0])))
+        for k, v in zip(keys, values):
+            self.round_metrics.setdefault(k, []).extend(v)
+            if k in _LOG_FIELDS:
+                getattr(self.log, _LOG_FIELDS[k]).extend(v)
 
     def _maybe_eval(self, r: int, eval_every: int, verbose: bool) -> None:
         if eval_every and (r + 1) % eval_every == 0 and self.eval_fn is not None:
@@ -175,7 +231,7 @@ class FLTrainer:
         tau_up, tau_dd = self.channel.tau_for_round(r)
         batches = {k: v[0] for k, v in self._stack_batches(1).items()}
         (self.params, self.server_state, self.agg_state, metrics) = self._round_fn(
-            self.params, self.server_state, self.agg_state, batches,
+            self.params, self.server_state, self._own(self.agg_state), batches,
             self._to_device(tau_up, torch.float32), self._to_device(tau_dd, torch.float32),
             self.A)
         self._log_rounds(r, metrics)
@@ -193,15 +249,16 @@ class FLTrainer:
                     verbose: bool) -> None:
         """``n_chunks`` chunks of ``k`` rounds through the chunked engine."""
         if self._scan_fn is None:
-            self._scan_fn = make_scan_round_fn(*self._opts, self.rc)
+            self._scan_fn = self._make_scan_fn(*self._opts, self.rc)
         batches = self._stack_batches(k)
         for c in range(n_chunks):
             r = r0 + c * k
             tau_up, tau_dd = self.channel.trace(r, k)
-            (self.params, self.server_state, self.agg_state, metrics) = self._scan_fn(
+            *carry, metrics = self._scan_fn(
                 self.params, self.server_state, self.agg_state, batches,
                 self._to_device(tau_up, torch.float32), self._to_device(tau_dd, torch.float32),
                 self.A)
+            self.params, self.server_state, self.agg_state = self._own(tuple(carry))
             # the chunk runs on the device while the host stacks the next
             # chunk's batches (the same client streams, in the same order)
             batches = self._stack_batches(k) if c + 1 < n_chunks else None
@@ -216,14 +273,15 @@ class FLTrainer:
         host."""
         if self._sampled_scan_fn is None:
             init_fn, sample_fn = self.channel.scan_sampler(self.device)
-            self._sampled_scan_fn = make_scan_round_fn(*self._opts, self.rc,
+            self._sampled_scan_fn = self._make_scan_fn(*self._opts, self.rc,
                                                        channel_sampler=sample_fn)
             self._channel_gen = torch.Generator(device=self.device).manual_seed(self._seed)
             self._channel_state = init_fn(self._channel_gen)
-        (self.params, self.server_state, self.agg_state, self._channel_state,
-         self._channel_gen, metrics) = self._sampled_scan_fn(
+        *carry, self._channel_gen, metrics = self._sampled_scan_fn(
             self.params, self.server_state, self.agg_state, self._stack_batches(k),
             self._channel_state, self._channel_gen, self.A)
+        (self.params, self.server_state, self.agg_state,
+         self._channel_state) = self._own(tuple(carry))
         self._log_rounds(r0, metrics)
         self._maybe_eval(r0 + k - 1, eval_every, verbose)
         self.round = r0 + k

@@ -1,11 +1,12 @@
 """Aggregation strategies: the protocol, the registry, the paper's ColRel
 with its FedAvg baselines, the block-sparse ``clustered`` ColRel, the
-replay-buffer ``memory`` scheme and the codec-wrapped ``quantized``
-scheme.  Importing this package registers them::
+replay-buffer ``memory`` scheme, the codec-wrapped ``quantized``
+scheme and the staleness-weighted ``async_colrel``.  Importing this
+package registers them::
 
     from repro_torch import strategies
 
-    strategies.available()   # ('clustered', 'colrel', ..., 'memory', 'quantized')
+    strategies.available()   # ('async_colrel', 'clustered', 'colrel', ..., 'quantized')
     s = strategies.get("colrel", fused="kernel")
 """
 
@@ -20,9 +21,11 @@ from repro_torch.strategies.classic import (
 from repro_torch.strategies.clustered import ClusteredColRelStrategy
 from repro_torch.strategies.memory import MemoryStrategy
 from repro_torch.strategies.quantized import QuantizedStrategy
+from repro_torch.strategies.async_relay import AsyncRelayStrategy, delivered_mask
 
 __all__ = [
     "AggregationStrategy",
+    "AsyncRelayStrategy",
     "ExecutionContext",
     "available",
     "get",
@@ -35,4 +38,5 @@ __all__ = [
     "FedAvgPerfect",
     "MemoryStrategy",
     "QuantizedStrategy",
+    "delivered_mask",
 ]

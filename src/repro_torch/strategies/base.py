@@ -55,11 +55,35 @@ class AggregationStrategy:
     needs_A: bool = False
     #: whether ``weights`` is available (delta == w @ updates exactly)
     scalar_collapsible: bool = False
+    #: whether the scheme carries state across rounds
+    stateful: bool = False
+
+    @property
+    def calibration_tracks_A(self) -> bool:
+        """True when the strategy holds host-side constants calibrated
+        against a specific relay weight matrix."""
+        return False
 
     def init_state(self, n: int, d: int, *, device=None) -> State:
         """Initial carried state for ``n`` clients and flat dim ``d``, with
         any tensors on ``device``."""
         return ()
+
+    def checkpoint_state(self, state: State) -> Any:
+        """Checkpointable form of the carried state: the state as it is."""
+        return state
+
+    def restore_state(self, saved: Any, *, device=None) -> State:
+        """Inverse of :meth:`checkpoint_state`: array leaves back to tensors
+        on ``device``; generators as they are."""
+        return tree.map(lambda x: x if isinstance(x, torch.Generator)
+                        else torch.as_tensor(x, device=device), saved)
+
+    def calibrate(self, model, A) -> "AggregationStrategy":
+        """Hook for host-side calibration against the link statistics;
+        returns a (possibly new) strategy.  The default is a no-op."""
+        del model, A
+        return self
 
     def wire_bits_per_coord(self, d: int) -> float:
         """Uplink wire cost per update coordinate: uncoded f32."""

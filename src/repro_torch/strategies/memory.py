@@ -53,6 +53,7 @@ class MemoryStrategy(AggregationStrategy):
     name = "memory"
     needs_A = True
     scalar_collapsible = False  # stale replay cannot collapse to weights
+    stateful = True
 
     def __init__(self, fused: "bool | str" = False):
         if fused not in _FUSED_MODES:

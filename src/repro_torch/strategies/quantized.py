@@ -53,6 +53,7 @@ class QuantizedStrategy(AggregationStrategy):
 
     name = "quantized"
     scalar_collapsible = False  # quantization happens on the dense stack
+    stateful = True  # (codec_state, inner_state)
 
     def __init__(self, codec="int8", inner="colrel", fused: "bool | str" = False,
                  codec_options=None, inner_options=None):

@@ -20,7 +20,6 @@ _FACTORIES: Dict[str, Callable[..., AggregationStrategy]] = {}
 # the reference's strategies still to port -> the ROADMAP.md item bringing them
 _UNPORTED = {
     "multihop": "queue 1, item 10 (stateful strategies: multihop)",
-    "async_colrel": "queue 1, item 13 (async relaying)",
     "colrel_fused": "queue 1, item 6 (deprecated alias; use 'colrel' with fused='collapse')",
 }
 

@@ -19,7 +19,10 @@ SSD recurrence is held to its plain version at atol = rtol = 5e-4 in f32
 (the reference's bound for its kernel) and 2e-2 in bf16, compared in f32:
 both compute in f32 and sum the products in another order.  The chunked
 engine's graphed chunk (one captured round replayed) is held to the
-per-round loop bitwise, with the int8 codec's generator.
+per-round loop bitwise, with the int8 codec's generator, and so are the
+client_sequential, weighted_grad and async rounds (every round metric
+too), async with no_trace as well; the captured async round launches
+kernel 1 (monolithic), kernel 2 (segmented) or kernel 8 (clustered) once.
 """
 
 import pytest
@@ -991,3 +994,150 @@ def test_int8_generator_advances_alike_eager_and_replayed(deterministic):
     # the next draws agree as well
     assert torch.equal(torch.rand(8, generator=sag[0], device=dev),
                        torch.rand(8, generator=ag[0], device=dev))
+
+
+# -- the other round modes and async relaying, captured and replayed --------------
+
+ASYNC_OPTIONS = {"gamma": 0.8, "opportunistic": False}  # ages grow on fig2b under markov
+MODE_PATHS = {
+    "client_sequential": dict(mode="client_sequential"),
+    "weighted_grad": dict(mode="weighted_grad", local_steps=1),
+    "async kernel": dict(mode="async", async_options=ASYNC_OPTIONS, channel="markov",
+                         strategy_options={"fused": "kernel"}),
+    "async segmented": dict(mode="async", async_options=ASYNC_OPTIONS, channel="markov",
+                            strategy_options={"fused": "kernel"}, segment_d=1),
+    "async plain": dict(mode="async", async_options=ASYNC_OPTIONS, channel="markov"),
+}
+# what the captured round launches on each path: the scalar-collapse modes
+# no kernel, async over colrel kernel 1 (monolithic) or kernel 2 (one pass
+# over the staging buffer)
+MODE_LAUNCHES = {"client_sequential": {}, "weighted_grad": {}, "async plain": {},
+                 "async kernel": {"fused_aggregate_cuda": 1},
+                 "async segmented": {"row_stream_cuda": 1}}
+
+
+def _assert_round_metrics_equal(a, b):
+    import numpy as np
+
+    assert set(a.round_metrics) == set(b.round_metrics)
+    for k, v in a.round_metrics.items():
+        np.testing.assert_array_equal(v, b.round_metrics[k], err_msg=k)
+
+
+@pytest.mark.parametrize("model", ["quadratic", "cifar_cnn"])
+@pytest.mark.parametrize("path", sorted(MODE_PATHS))
+def test_mode_graphed_chunk_equals_per_round(deterministic, path, model):
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+
+    small = dict(data_size=640, eval_size=64, batch_size=8)
+    kw = dict(MODE_PATHS[path])
+    kw.setdefault("local_steps", 2)
+    spec = ExperimentSpec(model=model, **kw, **(small if model == "cifar_cnn" else {}))
+    a, b = build_experiment(spec), build_experiment(spec)
+    a.run(6)
+    b.run(6, chunk=3)
+    _assert_trainers_equal(a.trainer, b.trainer)
+    _assert_round_metrics_equal(a.trainer, b.trainer)
+    stats = b.trainer._scan_fn.stats
+    assert b.trainer._scan_fn.graph is not None and stats["replays"] == 6
+    assert stats["captured_launches"] == MODE_LAUNCHES[path]
+    if path.startswith("async"):
+        assert len(a.trainer.round_metrics) == 8 and max(a.trainer.round_metrics["max_age"]) > 0
+
+
+@pytest.mark.parametrize("path", ["async kernel", "async segmented"])
+def test_async_no_trace_chunk_equals_per_round(deterministic, path):
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+
+    spec = ExperimentSpec(model="quadratic", **MODE_PATHS[path])
+    a, b = build_experiment(spec), build_experiment(spec)
+    a.run(6, no_trace=True)
+    b.run(6, chunk=3, no_trace=True)
+    _assert_trainers_equal(a.trainer, b.trainer)
+    _assert_round_metrics_equal(a.trainer, b.trainer)
+    assert b.trainer._sampled_scan_fn.stats["captured_launches"] == MODE_LAUNCHES[path]
+
+
+def test_async_clustered_launches_kernel_8(deterministic):
+    """Async over the clustered strategy: the block taus go through the
+    block form of the delivery mask and the round launches kernel 8 once."""
+    from repro_torch import strategies
+    from repro_torch.channel import ClusteredMarkovChannel, gilbert_elliott_clustered
+    from repro_torch.core import topology
+    from repro_torch.core.weights import optimize_weights_clustered
+    from repro_torch.fl.experiment import ExperimentSpec, build_task
+    from repro_torch.fl.trainer import FLTrainer
+
+    cmodel = topology.clustered_blocks(10, 0.5, 5, p_intra=0.8, rho=1.0)
+    Ab = optimize_weights_clustered(cmodel, sweeps=10, fine_tune_sweeps=10).Ab
+
+    def make():
+        loss_fn, init, clients, copt, sopt, T, _ = build_task(ExperimentSpec(model="quadratic"),
+                                                              cmodel.n)
+        return FLTrainer(loss_fn, init, None, Ab, clients, copt, sopt, local_steps=T,
+                         strategy=strategies.get("clustered", fused="kernel"), mode="async",
+                         async_options=ASYNC_OPTIONS,
+                         channel=ClusteredMarkovChannel(
+                             gilbert_elliott_clustered(cmodel, memory=0.9), seed=3))
+
+    a, b = make(), make()
+    a.run(6)
+    b.run(6, chunk=3)
+    _assert_trainers_equal(a, b)
+    _assert_round_metrics_equal(a, b)
+    assert b._scan_fn.stats["captured_launches"] == {"block_fused_aggregate_cuda": 1}
+
+
+@pytest.mark.parametrize("segment_d", [0, 1])
+def test_async_zero_blockage_kernel_round_is_sync_bitwise(deterministic, segment_d):
+    """All-ones tau_up into the async round over colrel's kernel path: params
+    and the shared metrics equal the sync colrel round's to the bit on the
+    monolithic path; the segmented path folds the multipliers into the
+    weight row, so it is held at atol = rtol = 1e-5."""
+    from repro_torch import strategies, tree
+    from repro_torch.fl.round import RoundConfig, make_async_round_fn, make_round_fn
+    from repro_torch.optim import sgd, sgd_momentum
+
+    dev = deterministic
+    n, T = 10, 2
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def loss_fn(params, batch):
+        return torch.sum((params["x"] * batch["t"][0]) ** 2) + params["b"].sum(), {}
+
+    batches = {"t": torch.randn(n, T, 1, 4099, generator=g, device=dev)}
+    tau_dd = (torch.rand(n, n, generator=g, device=dev) < 0.6).float()
+    A = torch.rand(n, n, generator=g, device=dev) * 0.5
+    p0 = {"x": torch.randn(4099, generator=g, device=dev), "b": torch.zeros(33, device=dev)}
+    copt, sopt = sgd(0.05), sgd_momentum(1.0, beta=0.9)
+    inner = strategies.get("colrel", fused="kernel")
+    rc = dict(n_clients=n, local_steps=T, segment_d=segment_d)
+    sync = make_round_fn(loss_fn, copt, sopt, RoundConfig(**rc, aggregation=inner))
+    strategy = strategies.AsyncRelayStrategy(inner=inner)
+    asyn = make_async_round_fn(loss_fn, copt, sopt, RoundConfig(**rc, aggregation=strategy))
+    args = (batches, torch.ones(n, device=dev), tau_dd, A)
+    p, _, _, m = sync(p0, sopt.init(p0), (), *args)
+    q, _, st, mq = asyn(p0, sopt.init(p0), strategy.init_state(n, 4132, device=dev), *args)
+    for x, y in zip(tree.leaves(p), tree.leaves(q)):
+        if segment_d:
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
+        else:
+            assert torch.equal(x, y)
+    assert float(mq["max_age"]) == 0.0 and not st["age"].any()
+    assert torch.equal(m["participation"], mq["participation"])
+
+
+def test_async_staging_pass_equals_per_leaf_plain(dev):
+    """Kernel 2 over the whole (n, d) staging buffer of cifar_cnn_full equals
+    the per-leaf plain row stream over its 61 column segments, bitwise."""
+    import numpy as np
+
+    widths = SEGMENT_WIDTHS["cifar_cnn_full"]
+    bounds = np.cumsum((0,) + widths)
+    g = torch.Generator().manual_seed(5)
+    staging = torch.randn(10, int(bounds[-1]), generator=g).to(dev)
+    w = torch.rand(10, generator=g).to(dev)
+    whole = ops.row_stream(w, staging)
+    per_leaf = torch.cat([fa.row_stream_plain(w, staging[:, a:b].contiguous())
+                          for a, b in zip(bounds[:-1], bounds[1:])])
+    assert torch.equal(whole, per_leaf)

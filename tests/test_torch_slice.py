@@ -122,9 +122,27 @@ def test_quantized_identity_tracks_reference(reference, model):
 
 
 def test_unported_options_raise():
-    for kw in (dict(ckpt_every=5), dict(mode="client_sequential"), dict(mode="async"),
-               dict(channel="mobility"), dict(adaptive=True), dict(telemetry=True),
-               dict(metrics_dir="m"), dict(profile_dir="p"), dict(ckpt_dir="c"),
-               dict(resume_from="c"), dict(strategy="multihop"), dict(strategy="async_colrel")):
+    for kw in (dict(ckpt_every=5), dict(channel="mobility"), dict(adaptive=True),
+               dict(telemetry=True), dict(metrics_dir="m"), dict(profile_dir="p"),
+               dict(profile_start=1), dict(log_every=1), dict(ckpt_dir="c"),
+               dict(resume_from="c"), dict(strategy="multihop")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_experiment(ExperimentSpec(model="quadratic", **kw), device="cpu")
+
+
+def test_experiment_spec_fields_match_reference():
+    """The port's spec has the reference's fields, in its order, with its
+    defaults, so a reference spec's fields build a port spec."""
+    import dataclasses
+
+    names = [f.name for f in dataclasses.fields(ExperimentSpec)]
+    assert names == [f.name for f in dataclasses.fields(JExperimentSpec)]
+    ours, theirs = ExperimentSpec(), JExperimentSpec()
+    for name in names:
+        assert getattr(ours, name) == getattr(theirs, name), name
+    # the ported new fields run: reopt_every is inert, donate and
+    # async_options reach the trainer
+    exp = build_experiment(ExperimentSpec(model="quadratic", reopt_every=7, donate=False,
+                                          mode="async", async_options={"gamma": 0.5}),
+                           device="cpu")
+    assert not exp.trainer.donate and exp.trainer.strategy.gamma == 0.5
