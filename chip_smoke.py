@@ -75,6 +75,25 @@ each of which fails the run by raising:
    the async kernel path (T=8) beside phase 4b's colrel kernel path; and
    weighted_flat against weighted_grad on jamba's smoke config without
    experts, one round;
+4d. the mmWave mobility channel with adaptive alpha, multihop relaying and
+   the sparsifying codecs, on cifar_cnn_full at the paper's widths from one
+   init, the checks at T=1 (the channel, the estimator and the aggregation
+   do not depend on T): eight rounds of mobility with adaptive
+   re-optimization every 4 rounds (a blind start alpha) through the kernel
+   (kernel 1 once a round), segmented (kernel 2's grouped launch once a
+   round) and collapse paths, which see the same taus (the estimator's
+   posterior and the clients' positions bitwise), re-optimize at rounds 3
+   and 7 to the same S_est and the same alpha, and end within PARAM_ATOL;
+   the kernel path again as 2 chunks of 4, bitwise its per-round run with
+   both alpha swaps, from one capture; four rounds of mobility_fast with
+   oracle COPT-alpha of the channel's round-0 model through kernel 1;
+   three rounds of calibrated multihop (K=2), per round and as one chunk,
+   bitwise, and K=1 bitwise colrel's collapse; three rounds each of
+   quantized topk (fraction 0.1) and randk (0.25), per round and as one
+   chunk, bitwise, with uplink_bits as the codec's descriptor gives them;
+   no_trace on mobility raising ValueError; then s/round at T=8 per round
+   and chunked (K=4) of the adaptive mobility kernel path in turns with
+   the colrel kernel path, and the host seconds of one re-optimization;
 5. times of each kernel at the main path's shapes beside its bound, its
    plain version and one PyTorch call computing the same product where
    there is one; kernels 2, 5 and 9 as the segmented paths launch them, one
@@ -183,6 +202,10 @@ MODE_REL_L2 = 5e-4
 # async carry and aggregation do not depend on T; T = 8 would take 8x the
 # local SGD of the eleven async runs), its timing at T = 8
 ASYNC_OPTIONS = {"gamma": 0.8, "opportunistic": False}
+# phase 4d: adaptive mobility re-optimizes every MOB_REOPT rounds (after
+# a warm-up of as many), MOB_ROUNDS rounds a run: two re-opts, the second on
+# the last round; its chunks are MOB_REOPT rounds, one re-opt a chunk
+MOB_REOPT, MOB_ROUNDS = 4, 8
 # Kernel 10 against its plain version (the dense softmax): the reference's
 # bound for its kernel in f32 (tests/test_kernels.py:52), and 2e-2 in bf16
 # (the output is rounded to bf16 on both sides), compared in f32.
@@ -860,8 +883,8 @@ def main():
                 "flash_attention": fl.flash_attention_cuda, "ssd_scan": ssd.ssd_scan_cuda}
 
     def drive(label, strategy, options, segment_d, *, channel="static", expect, make=None,
-              layout=(N_LEAVES, D_FULL)):
-        """Three rounds of one path with every launch count set to 0 just
+              layout=(N_LEAVES, D_FULL), rounds=ROUNDS):
+        """``rounds`` rounds of one path with every launch count set to 0 just
         before and read just after; ``expect`` names the kernels the path
         must have launched and how often, every other count must be 0.
         The path is a cifar_cnn_full experiment, or the experiment ``make``
@@ -873,7 +896,7 @@ def main():
             model="cifar_cnn_full", strategy=strategy, strategy_options=options,
             segment_d=segment_d, channel=channel))
         secs = []
-        for _ in range(ROUNDS):
+        for _ in range(rounds):
             t = time.perf_counter()
             exp.run(1)
             torch.cuda.synchronize()
@@ -897,7 +920,7 @@ def main():
     def max_diff(xs, ys):
         return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
 
-    def compare(label, ref, others):
+    def compare(label, ref, others, rounds=ROUNDS):
         """Params (and the replay buffer, where the strategy carries one) of
         ``ref`` against each other run."""
         for name, other, atol in others:
@@ -907,7 +930,7 @@ def main():
                                                   [other.trainer.agg_state])
             for what, diff in diffs.items():
                 check(diff <= atol, f"{label} vs {name}: {what} differ by {diff}")
-                print(f"[main] {label} vs {name} after {ROUNDS} rounds: {what} "
+                print(f"[main] {label} vs {name} after {rounds} rounds: {what} "
                       f"max_abs_diff={diff:.3e} (atol {atol})")
             check(ref.log.participation == other.log.participation,
                   f"{label} vs {name}: participation differs")
@@ -1066,14 +1089,14 @@ def main():
     def short(counts):
         return {k.removesuffix("_cuda"): v for k, v in counts.items()}
 
-    def same_run(label, ref, exp):
+    def same_run(label, ref, exp, rounds=ROUNDS):
         """Two runs' round metrics (every key the round returns), params,
         server state and strategy state, bitwise."""
         rm, em = ref.trainer.round_metrics, exp.trainer.round_metrics
         check(list(rm) == list(em), f"{label}: metric keys {list(em)} against {list(rm)}")
         for k, x in rm.items():
             y = em[k]
-            check(len(x) == len(y) == ROUNDS and all(
+            check(len(x) == len(y) == rounds and all(
                 u == v or (math.isnan(u) and math.isnan(v)) for u, v in zip(x, y)),
                 f"{label}: {k} {y} differs from {x}")
         for state in ("params", "server_state", "agg_state"):
@@ -1437,6 +1460,211 @@ def main():
     torch.cuda.empty_cache()
     print(f"[modes] weighted_flat's check took {time.perf_counter() - t_wf:.1f} s")
     print(f"[modes] phase 4c wall {time.perf_counter() - t4c:.1f} s [{card}]")
+
+    # -- 4d. mobility, adaptive alpha, multihop and the sparsifying codecs ---
+    # cifar_cnn_full at the paper's widths from one init; the checks at T=1
+    # (the channel, the estimator and the aggregation do not depend on T),
+    # the timings at the paper's T=8
+    t4d = time.perf_counter()
+    import copy
+
+    from repro_torch import wire
+    from repro_torch.channel import MobilityChannel
+
+    def adaptive_same(label, ref, exp):
+        """The adaptive logs, the estimator's posterior and the swapped-in
+        alpha of two runs, bitwise."""
+        for field in ("reopt_rounds", "S_est", "S_true", "est_p_err"):
+            check(getattr(exp.log, field) == getattr(ref.log, field),
+                  f"{label}: {field} {getattr(exp.log, field)} != {getattr(ref.log, field)}")
+        post, ref_post = (e.trainer.adaptive.estimator.checkpoint_state() for e in (exp, ref))
+        check(all(np.array_equal(post[k], ref_post[k]) for k in post),
+              f"{label}: the estimator's posterior (the taus it saw) differs")
+        check(np.array_equal(exp.trainer.channel.positions, ref.trainer.channel.positions),
+              f"{label}: the clients' positions differ")
+        check(torch.equal(exp.trainer.A, ref.trainer.A), f"{label}: the final alpha differs")
+
+    # adaptive mobility through the three kernel paths, 8 rounds, re-opts at
+    # rounds 3 and 7 (warm-up min(4, 20) = 4 rounds)
+    mob_kw = dict(channel="mobility", adaptive=True, reopt_every=MOB_REOPT, local_steps=1)
+    mob_paths = {"kernel": (dict(strategy_options={"fused": "kernel"}), "fused_aggregate"),
+                 "segmented": (dict(strategy_options={"fused": "kernel"}, segment_d=1),
+                               "row_stream_segments"),
+                 "collapse": (dict(strategy_options={"fused": "collapse"}), None)}
+    mob_runs = {}
+    for label, (kw, kernel) in mob_paths.items():
+        make = full_spec(**mob_kw, **kw)
+        mob_runs[label] = drive(f"adaptive mobility {label}", "colrel",
+                                kw["strategy_options"], kw.get("segment_d", 0),
+                                channel="mobility", rounds=MOB_ROUNDS, make=make,
+                                expect={} if kernel is None else {kernel: MOB_ROUNDS})[0]
+    m_k = mob_runs["kernel"]
+    check(m_k.log.reopt_rounds == [3, 7], f"adaptive mobility: re-opts at {m_k.log.reopt_rounds}")
+    check(np.array_equal(m_k.A, np.eye(n)) and not torch.equal(
+        m_k.trainer.A, torch.eye(n, device=dev)) and bool(torch.isfinite(m_k.trainer.A).all()),
+          "adaptive mobility: the blind start alpha was not swapped for a finite COPT-alpha")
+    for label in ("segmented", "collapse"):
+        adaptive_same(f"adaptive mobility {label}", m_k, mob_runs[label])
+    compare("adaptive mobility kernel", m_k, (("segmented", mob_runs["segmented"], PARAM_ATOL),
+                                              ("collapse", mob_runs["collapse"], PARAM_ATOL)),
+            rounds=MOB_ROUNDS)
+    print(f"[mobility] adaptive mobility, {MOB_ROUNDS} rounds on every path: the same taus "
+          f"(estimator posterior and positions bitwise), re-opts at {m_k.log.reopt_rounds}, "
+          f"S_est {m_k.log.S_est}, S_true {m_k.log.S_true}, est_p_err {m_k.log.est_p_err}, "
+          f"the final alpha bitwise equal; participation {m_k.log.participation}")
+
+    # the kernel path as 2 chunks of K = MOB_REOPT: each new alpha reaches the
+    # replayed round through the static A buffer, from one capture
+    for w_ in wrappers.values():
+        w_.launches = 0
+    m_ch = full_spec(**mob_kw, **mob_paths["kernel"][0])()
+    m_ch.run(MOB_ROUNDS, chunk=MOB_REOPT)
+    torch.cuda.synchronize()
+    st = m_ch.trainer._scan_fn.stats
+    check(st["captures"] == 1 and st["replays"] == MOB_ROUNDS
+          and st["captured_launches"] == {"fused_aggregate_cuda": 1},
+          f"adaptive mobility chunked: {st['captures']} captures, {st['replays']} replays, "
+          f"captured launches {st['captured_launches']}")
+    same_run("adaptive mobility chunked", m_k, m_ch, rounds=MOB_ROUNDS)
+    adaptive_same("adaptive mobility chunked", m_k, m_ch)
+    print(f"[mobility] the kernel path as {MOB_ROUNDS // MOB_REOPT} chunks of {MOB_REOPT}: bitwise "
+          f"the per-round run with both alpha swaps, {st['captures']} capture, {st['replays']} "
+          f"replays, kernel launches {wrappers['fused_aggregate'].launches} (the warm-up's and "
+          f"the captured round's); {engine_line(m_ch.trainer._scan_fn)} [{card}]")
+    del mob_runs, m_ch
+    torch.cuda.empty_cache()
+
+    # mobility_fast with oracle COPT-alpha from the channel's round-0 model,
+    # through kernel 1
+    fast_make = full_spec(channel="mobility_fast", strategy_options={"fused": "kernel"},
+                          local_steps=1)
+    fast, _ = drive("mobility_fast kernel", "colrel", {"fused": "kernel"}, 0,
+                    channel="mobility_fast", rounds=4, make=fast_make,
+                    expect={"fused_aggregate": 4})
+    oracle = optimize_weights(fast.trainer.channel.model_for_round(0), sweeps=30,
+                              fine_tune_sweeps=30).A
+    check(fast.copt_result is not None and np.array_equal(fast.A, oracle),
+          "mobility_fast: alpha is not COPT-alpha of the channel's round-0 model")
+    check(fast.trainer.channel.epoch == 10 and fast.trainer.channel.speed == 15.0,
+          "mobility_fast: not the preset's epoch and speed")
+    print(f"[mobility] mobility_fast (epoch 10, 15 m a round), 4 rounds, oracle COPT-alpha "
+          f"(S={fast.copt_result.S:.4f}): participation {fast.log.participation}")
+    del fast
+
+    # multihop, K = 2, calibrated; and K = 1 against colrel's collapse, bitwise
+    hop_make = full_spec(strategy="multihop", strategy_options={"hops": 2}, local_steps=1)
+    hop, _ = drive("multihop K=2", "multihop", {"hops": 2}, 0, expect={}, make=hop_make)
+    check(hop.strategy.correction is not None, "multihop: build_experiment did not calibrate")
+    drive_chunked("multihop K=2", hop, hop_make, set())
+
+    def uncalibrated(strategy):
+        """The default spec's run at T=1 with ``strategy`` as it is (the K=1
+        contract is for uncalibrated multihop; build_experiment calibrates)."""
+        spec = ExperimentSpec(model="cifar_cnn_full", local_steps=1)
+        loss_fn, init, clients, client_opt, server_opt, steps, _ = build_task(spec, n)
+        trainer = FLTrainer(loss_fn, init, fig2b, kernel_exp.A, clients, client_opt,
+                            server_opt, local_steps=steps, strategy=strategy,
+                            channel=StaticChannel(fig2b, seed=0))
+        return Experiment(spec=spec, trainer=trainer, link_model=fig2b, A=kernel_exp.A,
+                          strategy=strategy)
+
+    hop1, _ = drive("multihop K=1", "multihop", {"hops": 1}, 0, expect={},
+                    make=lambda: uncalibrated(strategies.get("multihop", hops=1)))
+    col1, _ = drive("colrel collapse T=1", "colrel", {"fused": "collapse"}, 0, expect={},
+                    make=lambda: uncalibrated(strategies.get("colrel", fused="collapse")))
+    check(hop1.log.weight_sums == col1.log.weight_sums and all(
+        torch.equal(a, b) for a, b in zip(tree.leaves(hop1.params), tree.leaves(col1.params))),
+        "multihop K=1: params or weight_sum differ from colrel's collapse")
+    print(f"[multihop] K=2 calibrated (correction {np.round(hop.strategy.correction, 4).tolist()}),"
+          f" weight_sum {hop.log.weight_sums}; K=1 bitwise colrel's collapse over {ROUNDS} rounds")
+    del hop, hop1, col1
+
+    # the sparsifying codecs through quantized relaying
+    for codec, fraction in (("topk", 0.1), ("randk", 0.25)):
+        opts = {"codec": codec, "codec_options": {"fraction": fraction}}
+        make = full_spec(strategy="quantized", strategy_options=opts, local_steps=1)
+        q_run, _ = drive(f"quantized {codec}", "quantized", opts, 0, expect={}, make=make)
+        bits = wire.get(codec, fraction=fraction).descriptor(d_full).bits_per_coord
+        want = [float(np.float32(p) * np.float32(d_full * bits))
+                for p in q_run.log.participation]
+        check(q_run.log.uplink_bits == want,
+              f"quantized {codec}: uplink_bits {q_run.log.uplink_bits}, the descriptor's {want}")
+        drive_chunked(f"quantized {codec}", q_run, make, set())
+        print(f"[sparse] {codec} (fraction {fraction}): {bits:.4f} bits a coordinate, uplink_bits "
+              f"{q_run.log.uplink_bits} as the descriptor gives them; loss {q_run.log.loss}")
+        del q_run
+
+    # no_trace: mobility has no in-scan sampler
+    nt = full_spec(channel="mobility", local_steps=1)()
+    try:
+        nt.run(1, no_trace=True)
+    except ValueError as e:
+        print(f"[mobility] no_trace on mobility raises ValueError: {e}")
+    else:
+        check(False, "no_trace on mobility did not raise")
+    del nt
+    torch.cuda.empty_cache()
+    print(f"[mobility] the checks took {time.perf_counter() - t4d:.1f} s")
+
+    # s/round at T = 8, per round and chunked (K = MOB_REOPT), the adaptive
+    # mobility kernel path in turns with phase 4b's colrel kernel path; and
+    # the host seconds of one re-optimization
+    t_mt = time.perf_counter()
+    timed_paths = {"colrel kernel": full_spec(strategy_options={"fused": "kernel"}),
+                   "adaptive mobility kernel": full_spec(
+                       **dict(mob_kw, local_steps=8), strategy_options={"fused": "kernel"})}
+    per_e = {k: make() for k, make in timed_paths.items()}
+    ch_e = {k: make() for k, make in timed_paths.items()}
+    for k in timed_paths:  # an unmeasured round, and an unmeasured chunk (the capture)
+        per_e[k].run(1)
+        ch_e[k].run(MOB_REOPT, chunk=MOB_REOPT)
+    torch.cuda.synchronize()
+    per_t = {k: [] for k in timed_paths}
+    ch_t = {k: [] for k in timed_paths}
+
+    def per_turn(k):
+        t = time.perf_counter()
+        per_e[k].run(1)
+        torch.cuda.synchronize()
+        per_t[k].append(time.perf_counter() - t)
+
+    def chunk_turn(k):
+        t = time.perf_counter()
+        ch_e[k].run(MOB_REOPT, chunk=MOB_REOPT)
+        torch.cuda.synchronize()
+        ch_t[k].append((time.perf_counter() - t) / MOB_REOPT)
+
+    order = list(timed_paths)
+    for k in order:
+        per_turn(k)
+    for k in order + order[::-1]:
+        chunk_turn(k)
+    for k in order[::-1]:
+        per_turn(k)
+    sched = ch_e["adaptive mobility kernel"].trainer.adaptive
+    check(ch_e["adaptive mobility kernel"].trainer._scan_fn.stats["captures"] == 1,
+          "adaptive mobility timing: the chunks captured more than once")
+    ups, dds = MobilityChannel(n, seed=9).tau_for_round(0)
+    reopt_s = []
+    for _ in range(3):
+        s_copy = copy.deepcopy(sched)
+        t = time.perf_counter()
+        A_new = s_copy.step(MOB_REOPT - 1, ups, dds)
+        reopt_s.append(time.perf_counter() - t)
+        check(A_new is not None, "the timed re-optimization did not fire")
+    for k in order:
+        print(f"[mobility] s/round {k} T=8, in turns: per round "
+              f"{[round(x, 4) for x in per_t[k]]} (median {statistics.median(per_t[k]):.4f}), "
+              f"chunked K={MOB_REOPT} {[round(x, 4) for x in ch_t[k]]} (mean "
+              f"{statistics.mean(ch_t[k]):.4f}) [{card}]")
+    print(f"[mobility] one re-optimization on the host (estimator update, projection, COPT-alpha "
+          f"{sched.cfg.sweeps} + {sched.cfg.fine_tune_sweeps} sweeps at n={n}): "
+          f"{[round(x, 4) for x in reopt_s]} s (median {statistics.median(reopt_s):.4f}); "
+          f"re-opts in the timed runs at {ch_e['adaptive mobility kernel'].log.reopt_rounds}")
+    del per_e, ch_e
+    torch.cuda.empty_cache()
+    print(f"[mobility] the timings took {time.perf_counter() - t_mt:.1f} s")
+    print(f"[mobility] phase 4d wall {time.perf_counter() - t4d:.1f} s [{card}]")
 
     # -- 5. times at the main path's shapes --------------------------------
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2

@@ -32,7 +32,16 @@ import torch
 
 from repro_torch.core.connectivity import LinkModel, sample_rounds
 
-__all__ = ["BlockBufferedChannel", "StaticChannel", "pair_lane_table", "static_scan_sampler"]
+__all__ = ["BlockBufferedChannel", "StaticChannel", "pair_lane_table", "stacked_trace",
+           "static_scan_sampler"]
+
+
+def stacked_trace(channel, start: int, rounds: int):
+    """The ``trace`` of a channel with per-round host state (mobility's
+    geometry advances every round): ``tau_for_round`` for each round,
+    stacked — the same stream, in bulk layout, at the per-round cost."""
+    ups, dds = zip(*(channel.tau_for_round(start + i) for i in range(rounds)))
+    return np.stack(ups), np.stack(dds)
 
 
 class BlockBufferedChannel:

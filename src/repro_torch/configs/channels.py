@@ -2,10 +2,9 @@
 ``repro.configs.channels``).
 
 Each preset names a reproducible channel dynamic; :func:`make_channel`
-instantiates it for a :class:`LinkModel`, whose per-round marginals the
-channel keeps.  ``static`` and the ``markov*`` presets are ported; the
-``mobility*`` presets (drifting geometry) raise ``NotImplementedError``
-naming the ROADMAP.md item that brings them.
+instantiates it for a :class:`LinkModel` (``static`` / ``markov*``: the
+model supplies the per-round marginals the channel keeps) or a client
+count (``mobility*``: the geometry is the model, and it drifts).
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.channel import MarkovChannel, StaticChannel, gilbert_elliott
+from repro_torch.channel import MarkovChannel, MobilityChannel, StaticChannel, gilbert_elliott
 from repro_torch.core.connectivity import LinkModel
 
 __all__ = ["ChannelPreset", "CHANNEL_PRESETS", "make_channel"]
@@ -26,6 +25,11 @@ class ChannelPreset:
     memory: float = 0.9
     occupancy: Optional[float] = None
     block: int = 256  # rounds generated per block
+    # mobility: geometry refresh cadence / client speed / roam half-width
+    epoch: int = 20
+    speed: float = 4.0
+    area: float = 300.0
+    d2d_mode: str = "intermittent"
 
 
 CHANNEL_PRESETS = {
@@ -38,16 +42,20 @@ CHANNEL_PRESETS = {
     "markov": ChannelPreset(kind="markov", memory=0.9),
     # heavy blockage: ~30-round bursts, same marginals
     "markov_heavy": ChannelPreset(kind="markov", memory=0.97),
-    # the reference's drifting-geometry presets (pedestrian and vehicular
-    # waypoint mobility), not ported yet
-    "mobility": ChannelPreset(kind="mobility"),
-    "mobility_fast": ChannelPreset(kind="mobility"),
+    # pedestrian-speed waypoint mobility, geometry refresh every 20 rounds
+    "mobility": ChannelPreset(kind="mobility", epoch=20, speed=4.0),
+    # vehicular-speed drift: topology turnover within ~a re-opt window
+    "mobility_fast": ChannelPreset(kind="mobility", epoch=10, speed=15.0),
 }
 
 
 def make_channel(preset: "str | ChannelPreset", model: Optional[LinkModel] = None, *,
-                 seed: int = 0):
-    """Instantiate a preset for ``model``, whose marginals the channel keeps."""
+                 n: Optional[int] = None, seed: int = 0):
+    """Instantiate a preset.
+
+    ``static`` / ``markov*`` need ``model`` (the marginals to keep);
+    ``mobility*`` needs ``n`` (or takes it from ``model``).
+    """
     if isinstance(preset, str):
         try:
             preset = CHANNEL_PRESETS[preset]
@@ -56,8 +64,12 @@ def make_channel(preset: "str | ChannelPreset", model: Optional[LinkModel] = Non
                 f"unknown channel preset {preset!r}; have {sorted(CHANNEL_PRESETS)}"
             ) from None
     if preset.kind == "mobility":
-        raise NotImplementedError("mobility channels are not ported to repro_torch yet: "
-                                  "ROADMAP.md queue 1, item 9 (channels: mobility)")
+        if n is None:
+            if model is None:
+                raise ValueError("mobility channel needs n (or a model for its n)")
+            n = model.n
+        return MobilityChannel(n, area=preset.area, speed=preset.speed, epoch=preset.epoch,
+                               seed=seed, d2d_mode=preset.d2d_mode)
     if preset.kind not in ("static", "markov"):
         raise ValueError(f"unknown channel kind {preset.kind!r}")
     if model is None:

@@ -29,7 +29,8 @@ import torch
 
 from repro_torch import strategies as strategy_registry
 from repro_torch.configs import colrel_paper
-from repro_torch.configs.channels import CHANNEL_PRESETS, make_channel
+from repro_torch.channel import AdaptiveConfig, AdaptiveWeightSchedule
+from repro_torch.configs.channels import make_channel
 from repro_torch.core import topology
 from repro_torch.core.connectivity import LinkModel
 from repro_torch.core.weights import (
@@ -64,8 +65,7 @@ class ExperimentSpec:
     reference's fields and defaults (a test holds the two lists equal).
     Fields whose feature is not ported yet raise ``NotImplementedError``
     naming their ``ROADMAP.md`` item in :func:`build_experiment` when set
-    away from their defaults: ``adaptive`` (item 21; ``reopt_every`` is
-    accepted and stays inert until then), the telemetry fields
+    away from their defaults: the telemetry fields
     ``telemetry``, ``metrics_dir``, ``profile_dir``, ``profile_start``,
     ``profile_rounds``, ``log_every`` (item 14) and the checkpointing
     fields (item 15).
@@ -77,10 +77,11 @@ class ExperimentSpec:
 
     Protocol: ``strategy`` + ``strategy_options`` (a registry name and
     its constructor kwargs, e.g. ``{"fused": "kernel"}``), ``alpha``
-    (``"auto"``, ``"copt"``, ``"fedavg"``, ``"importance"`` or an
-    ``(n, n)`` array), ``copt_sweeps``, ``mode``, ``local_steps`` (the
-    paper's T), ``rounds``, ``chunk`` (rounds per call of the chunked
-    engine; 1 = the per-round loop), ``async_options``
+    (``"auto"``: ``"copt"`` when the strategy reads A and no adaptive
+    schedule runs, else ``"fedavg"``; ``"copt"``, ``"fedavg"``,
+    ``"importance"`` or an ``(n, n)`` array), ``copt_sweeps``, ``mode``,
+    ``local_steps`` (the paper's T), ``rounds``, ``chunk`` (rounds per
+    call of the chunked engine; 1 = the per-round loop), ``async_options``
     (:class:`~repro_torch.strategies.AsyncRelayStrategy` kwargs for
     ``mode="async"``: ``gamma``, ``opportunistic``), ``segment_d``
     (flat-dim threshold for segment-streaming aggregation; 0 =
@@ -89,8 +90,9 @@ class ExperimentSpec:
 
     Channel: ``channel`` (a preset of
     :data:`repro_torch.configs.channels.CHANNEL_PRESETS`: ``static``,
-    ``markov_iid``, ``markov``, ``markov_heavy``), ``adaptive``,
-    ``reopt_every``.
+    ``markov_iid``, ``markov``, ``markov_heavy``, ``mobility``,
+    ``mobility_fast``), ``adaptive`` (estimate the links online and re-run
+    COPT-alpha every ``reopt_every`` rounds).
 
     Optimization (None = model-kind / paper defaults): ``lr``,
     ``weight_decay``, ``server_momentum``, ``batch_size``, ``seed``.
@@ -175,11 +177,6 @@ class Experiment:
 def _check_ported(spec: ExperimentSpec) -> None:
     if spec.mode not in MODES + ("async",):
         raise ValueError(f"unknown mode {spec.mode!r}; have {MODES + ('async',)}")
-    preset = CHANNEL_PRESETS.get(spec.channel)
-    if preset is not None and preset.kind == "mobility":
-        raise unported(f"channel {spec.channel!r}", "item 9 (channels: mobility)")
-    if spec.adaptive:
-        raise unported("adaptive alpha re-optimization", "item 21 (adaptive alpha)")
     if (spec.telemetry or spec.metrics_dir is not None or spec.profile_dir is not None
             or spec.profile_start != 0 or spec.profile_rounds != 4 or spec.log_every != 0):
         raise unported("telemetry (telemetry, metrics_dir, profile_dir, profile_start, "
@@ -203,7 +200,9 @@ def _resolve_alpha(spec: ExperimentSpec, model: LinkModel, strategy):
     alpha = spec.alpha
     if isinstance(alpha, str):
         if alpha == "auto":
-            alpha = "copt" if strategy.needs_A else "fedavg"
+            # adaptive runs start blind (identity) and let the re-opt take
+            # over; strategies that ignore A get identity too
+            alpha = "copt" if (strategy.needs_A and not spec.adaptive) else "fedavg"
         if alpha == "copt":
             res = optimize_weights(model, sweeps=spec.copt_sweeps,
                                    fine_tune_sweeps=spec.copt_sweeps)
@@ -214,6 +213,18 @@ def _resolve_alpha(spec: ExperimentSpec, model: LinkModel, strategy):
             return importance_weights(model), None
         raise ValueError(f"unknown alpha spec {alpha!r}")
     return np.asarray(alpha, np.float64), None
+
+
+def _adaptive_schedule(spec: ExperimentSpec, n: int) -> Optional[AdaptiveWeightSchedule]:
+    if not spec.adaptive:
+        return None
+    return AdaptiveWeightSchedule(n, AdaptiveConfig(
+        every=spec.reopt_every,
+        warmup=min(spec.reopt_every, 20),
+        # forget old evidence under drifting geometry
+        decay=0.995 if str(spec.channel).startswith("mobility") else 1.0,
+        prune_below=0.02,
+    ))
 
 
 def _build_cifar(spec: ExperimentSpec, n: int, device: torch.device):
@@ -316,19 +327,30 @@ def build_experiment(spec: ExperimentSpec, device=None) -> Experiment:
         raise KeyError(f"unknown model kind {spec.model!r}; have {sorted(_MODEL_BUILDERS)}")
     _check_ported(spec)
     dev = resolve_device(device)
-    link_model = _resolve_topology(spec)
-    channel = make_channel(spec.channel, link_model, seed=spec.seed)
-    n = link_model.n
+    channel = make_channel(spec.channel, _resolve_topology(spec), seed=spec.seed)
+    # mobility derives its own (drifting) geometry; the round-0 model of the
+    # other channels is the topology's (markov keeps its marginals)
+    init_model = channel.model_for_round(0)
+    n = init_model.n
     strategy = strategy_registry.resolve(spec.strategy, **dict(spec.strategy_options))
-    A, copt_result = _resolve_alpha(spec, link_model, strategy)
+    if spec.adaptive and not strategy.needs_A:
+        raise ValueError(f"adaptive alpha re-optimization only affects strategies that "
+                         f"read A; {strategy.name!r} ignores it")
+    A, copt_result = _resolve_alpha(spec, init_model, strategy)
+    # host-side calibration against the link statistics (multihop's K-hop
+    # correction; a no-op by default), skipped under the adaptive schedule:
+    # alpha starts blind and is re-optimized mid-run, so a correction
+    # against the start alpha would be stale from the first re-opt
+    if not spec.adaptive:
+        strategy = strategy.calibrate(init_model, A)
     loss_fn, init_params, clients, client_opt, server_opt, local_steps, eval_fn = (
         build_task(spec, n, dev))
     trainer = FLTrainer(
-        loss_fn, init_params, link_model, A, clients, client_opt, server_opt,
+        loss_fn, init_params, init_model, A, clients, client_opt, server_opt,
         local_steps=local_steps, strategy=strategy, mode=spec.mode,
         async_options=dict(spec.async_options) or None, donate=spec.donate,
         segment_d=spec.segment_d, seed=spec.seed, eval_fn=eval_fn,
-        channel=channel, device=dev,
+        channel=channel, adaptive=_adaptive_schedule(spec, n), device=dev,
     )
-    return Experiment(spec=spec, trainer=trainer, link_model=link_model,
+    return Experiment(spec=spec, trainer=trainer, link_model=init_model,
                       A=np.asarray(A), strategy=strategy, copt_result=copt_result)

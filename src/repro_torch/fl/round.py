@@ -279,8 +279,8 @@ class ScanRound:
         self._slot: Optional[_RoundSlot] = None
         #: warm-up, capture and instantiate seconds, launches counted in the
         #: warm-up round and in the captured round, the graph's memory pool
-        #: bytes, the chunk's static batch and tau buffers' bytes, and rounds
-        #: replayed since the capture (CUDA only)
+        #: bytes, the chunk's static batch and tau buffers' bytes, rounds
+        #: replayed since the last capture, and captures made (CUDA only)
         self.stats: Dict[str, Any] = {}
 
     @property
@@ -448,6 +448,7 @@ class _RoundSlot:
         stats["buffer_bytes"] = sum(v.numel() * v.element_size() for v in
                                     [*self.xs.values(), *(self.taus or ())])
         stats["replays"] = 0
+        stats["captures"] = stats.get("captures", 0) + 1
         self.graph = graph
 
     def run(self, carry, xs, taus, A, K: int):

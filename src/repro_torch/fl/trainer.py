@@ -13,6 +13,11 @@ taus inside the round from the channel's ``scan_sampler``.
 ``mode="async"`` (or an async strategy such as ``"async_colrel"``) runs
 staleness-weighted async relaying through
 :func:`~repro_torch.fl.round.make_async_round_fn` and its chunked twin.
+With an :class:`~repro_torch.channel.AdaptiveWeightSchedule` attached the
+trainer does not assume oracle link knowledge: it estimates ``(p, P, E)``
+from the realized taus and re-runs COPT-alpha every K rounds, swapping
+the fresh alpha in as a new ``A`` tensor that the next round (or the next
+chunk, which copies ``A`` into its captured round's static buffer) reads.
 Options of the reference that this package does not have yet raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 Prefer building a trainer through
@@ -32,6 +37,7 @@ from repro_torch import tree
 from repro_torch.channel.base import StaticChannel
 from repro_torch.core import flatten
 from repro_torch.core.connectivity import LinkModel
+from repro_torch.core.weights import variance_S
 from repro_torch.data.pipeline import ClientDataset, stack_chunk_batches
 from repro_torch.fl.round import (
     RoundConfig,
@@ -129,8 +135,6 @@ class FLTrainer:
         trainer may change under the next round.  ``donate=False`` keeps
         them: each round gets clones of the strategy state, and the
         trainer keeps clones of the carry a chunk returns."""
-        if adaptive is not None:
-            raise unported("adaptive alpha re-optimization", "item 21 (adaptive alpha)")
         if telemetry:
             raise unported("telemetry", "item 14 (telemetry)")
         self.device = resolve_device(device)
@@ -153,6 +157,17 @@ class FLTrainer:
                 raise ValueError("provide link_model or channel")
             channel = StaticChannel(link_model, seed=seed)
         self.channel = channel
+        self.adaptive = adaptive
+        if adaptive is not None and not self.strategy.needs_A:
+            raise ValueError(
+                f"adaptive alpha re-optimization only affects strategies "
+                f"that read A; {self.strategy.name!r} ignores it")
+        if adaptive is not None and self.strategy.calibration_tracks_A:
+            raise ValueError(
+                f"strategy {self.strategy.name!r} was calibrated against a "
+                "fixed alpha; the adaptive schedule swaps alpha mid-run, "
+                "which would silently stale the calibration — run it "
+                "uncalibrated or without adaptive")
         n = channel.n
         if link_model is not None and link_model.n != n:
             raise ValueError(f"link_model.n={link_model.n} != channel.n={n}")
@@ -235,13 +250,40 @@ class FLTrainer:
             self._to_device(tau_up, torch.float32), self._to_device(tau_dd, torch.float32),
             self.A)
         self._log_rounds(r, metrics)
+        if self.adaptive is not None:
+            self._ingest_adaptive(r, tau_up, tau_dd, verbose)
         self._maybe_eval(r, eval_every, verbose)
         self.round = r + 1
 
+    def _ingest_adaptive(self, r: int, tau_up: np.ndarray, tau_dd: np.ndarray,
+                         verbose: bool) -> bool:
+        """Feed one round's realization to the adaptive schedule; on re-opt
+        rounds log the event and swap in the fresh alpha as a new tensor (a
+        chunk in flight may still read the old one)."""
+        A_new = self.adaptive.step(r, tau_up, tau_dd)
+        if A_new is None:
+            return False
+        self.A = torch.as_tensor(np.asarray(A_new), dtype=torch.float32).to(self.device)
+        true_m = self.channel.model_for_round(r)
+        info = self.adaptive.events[-1]
+        self.log.reopt_rounds.append(r)
+        self.log.est_p_err.append(self.adaptive.estimator.errors(true_m)["p"])
+        self.log.S_est.append(float(info["S_est"]))
+        self.log.S_true.append(float(variance_S(true_m, A_new)))
+        if verbose:
+            print(f"  round {r+1:4d}  re-opt alpha: S_est={self.log.S_est[-1]:.3f} "
+                  f"S_true={self.log.S_true[-1]:.3f} p_err={self.log.est_p_err[-1]:.3f}")
+        return True
+
     def _effective_chunk(self, chunk: int, eval_every: int) -> int:
-        """The requested chunk when it divides the eval cadence, so evals
-        land on chunk boundaries, else 1 (per-round)."""
-        if chunk <= 1 or (eval_every and eval_every % chunk != 0):
+        """The requested chunk when it divides every host-side cadence (the
+        adaptive re-opt and the eval), so those events land on chunk
+        boundaries, else 1 (per-round)."""
+        if chunk <= 1:
+            return 1
+        if self.adaptive is not None and self.adaptive.cfg.every % chunk != 0:
+            return 1
+        if eval_every and eval_every % chunk != 0:
             return 1
         return chunk
 
@@ -263,6 +305,13 @@ class FLTrainer:
             # chunk's batches (the same client streams, in the same order)
             batches = self._stack_batches(k) if c + 1 < n_chunks else None
             self._log_rounds(r, metrics)
+            if self.adaptive is not None:
+                for i in range(k):
+                    swapped = self._ingest_adaptive(r + i, tau_up[i], tau_dd[i], verbose)
+                    if swapped and i != k - 1:  # guarded by _effective_chunk
+                        raise RuntimeError(
+                            f"adaptive re-opt fired mid-chunk (round {r + i}, chunk "
+                            f"[{r}, {r + k})); the cadence must be a multiple of chunk")
             self._maybe_eval(r + k - 1, eval_every, verbose)
             self.round = r + k
 
@@ -295,12 +344,13 @@ class FLTrainer:
         only at chunk boundaries; the trajectory is bitwise the per-round
         loop's.  Rounds that cannot form an aligned chunk (leading rounds
         until the round counter is a multiple of K, and the tail) run per
-        round; if K does not divide ``eval_every`` the whole run is per
-        round.
+        round; if K does not divide ``eval_every`` or the adaptive
+        schedule's cadence, the whole run is per round.
 
         ``no_trace=True`` draws the taus inside the round through the
         channel's ``scan_sampler``, in chunks of K (the last one shorter):
-        the same law as the traced stream, not the same draws.
+        the same law as the traced stream, not the same draws.  It needs a
+        channel with a ``scan_sampler`` and no adaptive schedule.
         """
         start, end = self.round, self.round + rounds
         k = self._effective_chunk(int(chunk), eval_every)
@@ -308,6 +358,10 @@ class FLTrainer:
             if not hasattr(self.channel, "scan_sampler"):
                 raise ValueError(f"no_trace needs a channel with scan_sampler(); "
                                  f"{type(self.channel).__name__} cannot sample in-scan")
+            if self.adaptive is not None:
+                raise ValueError(
+                    "no_trace is incompatible with adaptive re-optimization: the estimator "
+                    "consumes realized taus on the host, which no_trace never materializes")
             for r in range(start, end, k):
                 self._run_chunks_sampled(r, min(k, end - r), eval_every, verbose)
             return self.log

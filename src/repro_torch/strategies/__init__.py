@@ -1,8 +1,8 @@
 """Aggregation strategies: the protocol, the registry, the paper's ColRel
 with its FedAvg baselines, the block-sparse ``clustered`` ColRel, the
 replay-buffer ``memory`` scheme, the codec-wrapped ``quantized``
-scheme and the staleness-weighted ``async_colrel``.  Importing this
-package registers them::
+scheme, K-hop ``multihop`` relaying and the staleness-weighted
+``async_colrel``.  Importing this package registers them::
 
     from repro_torch import strategies
 
@@ -20,6 +20,7 @@ from repro_torch.strategies.classic import (
 )
 from repro_torch.strategies.clustered import ClusteredColRelStrategy
 from repro_torch.strategies.memory import MemoryStrategy
+from repro_torch.strategies.multihop import MultiHopStrategy, multihop_correction
 from repro_torch.strategies.quantized import QuantizedStrategy
 from repro_torch.strategies.async_relay import AsyncRelayStrategy, delivered_mask
 
@@ -37,6 +38,8 @@ __all__ = [
     "FedAvgNonBlind",
     "FedAvgPerfect",
     "MemoryStrategy",
+    "MultiHopStrategy",
     "QuantizedStrategy",
     "delivered_mask",
+    "multihop_correction",
 ]

@@ -10,10 +10,14 @@ registry::
 
     strategies.get("quantized")                                # int8(colrel)
     strategies.get("quantized", codec="int8", codec_options={"bits": 4})
+    strategies.get("quantized", codec="topk", inner="multihop",
+                   inner_options={"hops": 2})
 
 **Unbiasedness-correction hook.**  The codec's descriptor declares any
 known multiplicative bias (``E[decode(encode(x))] = gain · x``); the
 strategy divides the decoded stack by it before the inner aggregation.
+``calibrate`` passes through to the inner strategy (multihop's K-hop
+correction), so a calibrated inner scheme behind a codec stays calibrated.
 
 **State.**  The strategy threads ``(codec_state, inner_state)`` through
 the round's ``agg_state``; the int8 codec's state is a ``torch.Generator``
@@ -75,6 +79,18 @@ class QuantizedStrategy(AggregationStrategy):
         self.fused = fused
         # proxy the inner scheme's connectivity contract
         self.needs_A = self.inner.needs_A
+
+    @property
+    def calibration_tracks_A(self) -> bool:
+        return self.inner.calibration_tracks_A
+
+    def calibrate(self, model, A) -> "QuantizedStrategy":
+        """Calibrate the inner scheme (e.g. multihop's K-hop correction);
+        the codec has nothing to calibrate."""
+        inner = self.inner.calibrate(model, A)
+        if inner is self.inner:
+            return self
+        return QuantizedStrategy(codec=self.codec, inner=inner, fused=self.fused)
 
     def init_state(self, n: int, d: int, *, device=None) -> State:
         return (self.codec.init_state(n, d, device=device),

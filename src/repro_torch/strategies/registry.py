@@ -19,7 +19,6 @@ _FACTORIES: Dict[str, Callable[..., AggregationStrategy]] = {}
 
 # the reference's strategies still to port -> the ROADMAP.md item bringing them
 _UNPORTED = {
-    "multihop": "queue 1, item 10 (stateful strategies: multihop)",
     "colrel_fused": "queue 1, item 6 (deprecated alias; use 'colrel' with fused='collapse')",
 }
 

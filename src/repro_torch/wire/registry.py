@@ -3,8 +3,6 @@
 ``get("int8", bits=4)`` instantiates a registered factory; ``register``
 opens the family to new wire formats; ``resolve`` turns a name or an
 already-built :class:`~repro_torch.wire.base.WireCodec` into an instance.
-The reference's codecs that this package does not have yet raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 """
 
 from __future__ import annotations
@@ -16,12 +14,6 @@ from repro_torch.wire.base import WireCodec
 __all__ = ["register", "get", "available", "resolve"]
 
 _FACTORIES: Dict[str, Callable[..., WireCodec]] = {}
-
-# the reference's codecs still to port -> the ROADMAP.md item bringing them
-_UNPORTED = {
-    "topk": "queue 1, item 11 (wire formats: topk/randk)",
-    "randk": "queue 1, item 11 (wire formats: topk/randk)",
-}
 
 
 def register(name: str, factory: Optional[Callable[..., WireCodec]] = None, *,
@@ -45,9 +37,6 @@ def available() -> Tuple[str, ...]:
 
 def get(name: str, **options) -> WireCodec:
     """Instantiate a registered codec by name."""
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"codec {name!r} is not ported to repro_torch yet: ROADMAP.md {_UNPORTED[name]}")
     try:
         factory = _FACTORIES[str(name)]
     except KeyError:

@@ -157,12 +157,6 @@ def test_presets_build_their_channels():
         make_channel("markov")
 
 
-@pytest.mark.parametrize("name", ["mobility", "mobility_fast"])
-def test_mobility_raises_naming_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        make_channel(name, MODEL)
-
-
 # -- clustered (block-form) channels -------------------------------------------
 
 def _clustered_model(C=3, m=4, seed=0, rho=0.6):

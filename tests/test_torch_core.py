@@ -159,10 +159,11 @@ def test_colrel_kernel_segments_equal_monolithic_bitwise():
 
 
 def test_unported_strategies_raise():
-    for name in ("multihop",):
+    for name in ("colrel_fused",):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             strategies.get(name)
-    assert {"memory", "quantized", "clustered", "async_colrel"} <= set(strategies.available())
+    assert {"memory", "quantized", "clustered", "async_colrel", "multihop"} <= set(
+        strategies.available())
 
 
 def test_copt_alpha_on_fig2b_equals_reference():

@@ -23,6 +23,9 @@ per-round loop bitwise, with the int8 codec's generator, and so are the
 client_sequential, weighted_grad and async rounds (every round metric
 too), async with no_trace as well; the captured async round launches
 kernel 1 (monolithic), kernel 2 (segmented) or kernel 8 (clustered) once.
+An adaptive mobility run's chunks are bitwise its per-round run with the
+re-optimized alphas swapped in, from one capture; so are the multihop,
+topk and randk rounds (randk's generator too).
 """
 
 import pytest
@@ -1141,3 +1144,65 @@ def test_async_staging_pass_equals_per_leaf_plain(dev):
     per_leaf = torch.cat([fa.row_stream_plain(w, staging[:, a:b].contiguous())
                           for a, b in zip(bounds[:-1], bounds[1:])])
     assert torch.equal(whole, per_leaf)
+
+
+# -- adaptive alpha, multihop and the sparsifying codecs, captured and replayed ----
+
+@pytest.mark.parametrize("model", ["quadratic", "cifar_cnn"])
+@pytest.mark.parametrize("mode", ["per_client", "async"])
+@pytest.mark.parametrize("segment_d", [0, 1])
+def test_adaptive_graphed_chunk_swaps_alpha_without_recapture(deterministic, model, mode,
+                                                               segment_d):
+    """Mobility with re-opts at rounds 2, 5 and 8: each new alpha reaches the
+    replayed round through the static A buffer, so the run captures once and
+    is bitwise its per-round run; sync and async over colrel's kernels."""
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+
+    small = dict(local_steps=2, data_size=640, eval_size=64, batch_size=8)
+    spec = ExperimentSpec(model=model, channel="mobility", adaptive=True, reopt_every=3,
+                          strategy_options={"fused": "kernel"}, segment_d=segment_d, mode=mode,
+                          **(small if model == "cifar_cnn" else {}))
+    a, b = build_experiment(spec), build_experiment(spec)
+    a.run(9)
+    b.run(9, chunk=3)
+    _assert_trainers_equal(a.trainer, b.trainer)
+    for field in ("reopt_rounds", "S_est", "S_true", "est_p_err"):
+        assert getattr(a.log, field) == getattr(b.log, field), field
+    assert b.log.reopt_rounds == [2, 5, 8]
+    assert b.trainer.A.is_cuda and torch.equal(a.trainer.A, b.trainer.A)
+    stats = b.trainer._scan_fn.stats
+    assert stats["captures"] == 1 and stats["replays"] == 9
+    segmented = "row_stream_cuda" if mode == "async" else "row_stream_segments_cuda"
+    assert stats["captured_launches"] == {segmented if segment_d else "fused_aggregate_cuda": 1}
+
+
+SPARSE_PATHS = {
+    "randk": dict(strategy="quantized",
+                  strategy_options={"codec": "randk", "codec_options": {"fraction": 0.25}}),
+    "topk": dict(strategy="quantized",
+                 strategy_options={"codec": "topk", "codec_options": {"fraction": 0.1}}),
+    "multihop": dict(strategy="multihop", strategy_options={"hops": 2}),
+    "topk(multihop)": dict(strategy="quantized",
+                           strategy_options={"codec": "topk", "inner": "multihop",
+                                             "inner_options": {"hops": 2}}),
+}
+
+
+@pytest.mark.parametrize("model", ["quadratic", "cifar_cnn"])
+@pytest.mark.parametrize("path", sorted(SPARSE_PATHS))
+def test_sparse_and_multihop_graphed_chunk_equals_per_round(deterministic, path, model):
+    """randk's generator is registered with the graph, so eager rounds and
+    replays advance one stream; multihop's source scale is made in the eager
+    warm-up round and only read by the captured one."""
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+
+    small = dict(local_steps=2, data_size=640, eval_size=64, batch_size=8)
+    spec = ExperimentSpec(model=model, **SPARSE_PATHS[path],
+                          **(small if model == "cifar_cnn" else {}))
+    a, b = build_experiment(spec), build_experiment(spec)
+    a.run(6)
+    b.run(6, chunk=3)
+    _assert_trainers_equal(a.trainer, b.trainer)
+    stats = b.trainer._scan_fn.stats
+    assert b.trainer._scan_fn.graph is not None and stats["replays"] == 6
+    assert stats["captured_launches"] == {}  # plain PyTorch paths, as in the reference

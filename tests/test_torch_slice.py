@@ -122,10 +122,9 @@ def test_quantized_identity_tracks_reference(reference, model):
 
 
 def test_unported_options_raise():
-    for kw in (dict(ckpt_every=5), dict(channel="mobility"), dict(adaptive=True),
-               dict(telemetry=True), dict(metrics_dir="m"), dict(profile_dir="p"),
-               dict(profile_start=1), dict(log_every=1), dict(ckpt_dir="c"),
-               dict(resume_from="c"), dict(strategy="multihop")):
+    for kw in (dict(ckpt_every=5), dict(telemetry=True), dict(metrics_dir="m"),
+               dict(profile_dir="p"), dict(profile_start=1), dict(log_every=1),
+               dict(ckpt_dir="c"), dict(resume_from="c")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_experiment(ExperimentSpec(model="quadratic", **kw), device="cpu")
 
