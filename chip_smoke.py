@@ -94,6 +94,24 @@ each of which fails the run by raising:
    no_trace on mobility raising ValueError; then s/round at T=8 per round
    and chunked (K=4) of the adaptive mobility kernel path in turns with
    the colrel kernel path, and the host seconds of one re-optimization;
+4e. telemetry and checkpoint/resume, on cifar_cnn_full at the paper's
+   widths from one init, the checks at T=1 (the streak, the vectors and the
+   carry do not depend on T): the colrel kernel path with telemetry on, 4
+   rounds per round and as one chunk of 4, bitwise the telemetry-off
+   per-round run (every scalar, params, server and strategy state), the
+   chunk bitwise the per-round run with the vectors and the int32 streak,
+   which follow the recurrence; then 8 rounds in chunks of 4 with
+   telemetry and a checkpoint every chunk on the memory kernel path under
+   Markov blockage (kernel 4), int8 quantized (kernel 6, the codec's
+   generator on the card) and colrel no_trace on Markov (the sampler's
+   CUDA generator): a fresh trainer
+   resumed at round 4 ends bitwise the uninterrupted run, from one capture,
+   and the uninterrupted trainer, which has captured, restored at round 4
+   does so again without capturing; the checkpoints' bytes, the loop's
+   blocked and the writer's commit seconds, the resumed first chunk's
+   warm-up and capture; then s/round at T=8 chunked (K=4) of the colrel
+   kernel path with telemetry off, on, and off with a checkpoint every
+   chunk, in turns;
 5. times of each kernel at the main path's shapes beside its bound, its
    plain version and one PyTorch call computing the same product where
    there is one; kernels 2, 5 and 9 as the segmented paths launch them, one
@@ -222,6 +240,9 @@ SEAMLESS = "seamless-m4t-large-v2"
 # reference's serve_decode example does it, at 4 requests
 PF_B, PF_T = 4, 4096
 SV_B, SV_P, SV_G = 4, 64, 32
+# decode steps profiled (phase 7), cut from the prompt's 64: reducing the
+# trace of 64 steps (~236k kernels and their host events) took ~170 s
+SV_PROF = 8
 # Full-width seamless under the zoo's init (projections scaled by the
 # fan-in shape[-2], the head count for wq) has attention logits of standard
 # deviation ~64: the softmaxes are nearly one-hot and a near-tie flips on a
@@ -385,6 +406,7 @@ def main():
     from repro_torch.models.cnn import CNN
 
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
     # -- 1. device ---------------------------------------------------------
     card = card_line()
     print(f"[device] {card}")
@@ -1666,6 +1688,199 @@ def main():
     print(f"[mobility] the timings took {time.perf_counter() - t_mt:.1f} s")
     print(f"[mobility] phase 4d wall {time.perf_counter() - t4d:.1f} s [{card}]")
 
+    # -- 4e. telemetry and checkpoint/resume --------------------------------------
+    # cifar_cnn_full at the paper's widths from one init; the bitwise checks at
+    # T=1 (the streak, the vectors and the carry do not depend on T), the
+    # timings at T=8.  Checkpoints go to build/ckpt_4e, removed at the end.
+    t4e = time.perf_counter()
+    import shutil
+
+    from repro_torch.ckpt import CheckpointWriter
+    from repro_torch.telemetry import VECTOR_METRICS
+
+    ck_root = ROOT / "build" / "ckpt_4e"
+    shutil.rmtree(ck_root, ignore_errors=True)
+
+    def counted_run(label, exp, rounds, expect, **run_kw):
+        """``exp.run(rounds, **run_kw)`` with every launch count set to 0 just
+        before and read just after; ``expect`` names the counts."""
+        for w_ in wrappers.values():
+            w_.launches = 0
+        t = time.perf_counter()
+        exp.run(rounds, **run_kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launched = {k: w_.launches for k, w_ in wrappers.items() if w_.launches}
+        check(launched == expect, f"{label}: launches {launched}, expected {expect}")
+        check(all(math.isfinite(v) for v in exp.log.loss), f"{label}: loss {exp.log.loss}")
+        return secs
+
+    def final_state(exp):
+        """A run's end, copied: the carry is the engine's static buffers,
+        which a later chunk overwrites."""
+        tr = exp.trainer
+        return dict(
+            metrics={k: list(v) for k, v in tr.round_metrics.items()},
+            log=tr.log.to_dict(),
+            vectors={k: tr.metrics.vector(k) for k in VECTOR_METRICS},
+            state=[(x.get_state() if isinstance(x, torch.Generator) else x.clone())
+                   for x in tree.leaves((tr.params, tr.server_state, tr.agg_state, tr._streak,
+                                         tr._channel_state, tr._channel_gen))
+                   if x is not None],
+            round=tr.round)
+
+    def same_end(label, want, exp, keys=None):
+        """Every round metric (of ``keys``, default all), the TrainLog, the
+        vectors and the carry (params, server and strategy state, streak,
+        the sampler's state and generator) bitwise."""
+        got = final_state(exp)
+        for k in keys or want["metrics"]:
+            x, y = want["metrics"][k], got["metrics"][k]
+            check(len(x) == len(y) and all(u == v or (math.isnan(u) and math.isnan(v))
+                                           for u, v in zip(x, y)), f"{label}: {k} {y} != {x}")
+        if keys is None:
+            check(got["round"] == want["round"] and got["log"]["rounds"] == want["log"]["rounds"],
+                  f"{label}: rounds differ")
+            for k, v in want["vectors"].items():
+                check(v is not None and got["vectors"][k].dtype == v.dtype
+                      and np.array_equal(got["vectors"][k], v), f"{label}: {k} differs")
+        check(len(got["state"]) >= len(want["state"]), f"{label}: carry leaves differ")
+        for a, b in zip(want["state"], got["state"]):
+            check(a.dtype == b.dtype and torch.equal(a, b), f"{label}: the carry differs")
+
+    # (a) telemetry on the colrel kernel path: on against off, per round and as
+    # one chunk of CHUNK_K, from one init (off chunked == off per round is
+    # phase 4b's)
+    tel = {}
+    for label, on, chunk in (("off, per round", False, 1), ("on, per round", True, 1),
+                             ("on, chunked", True, CHUNK_K)):
+        exp = full_spec(strategy_options={"fused": "kernel"}, local_steps=1, telemetry=on)()
+        counted_run(f"telemetry {label}", exp, CHUNK_K,
+                    {"fused_aggregate": CHUNK_K if chunk == 1 else 2}, chunk=chunk)
+        tel[label] = exp
+    off_keys = list(tel["off, per round"].trainer.round_metrics)
+    off_end = final_state(tel["off, per round"])
+    on_end = final_state(tel["on, per round"])
+    for label in ("on, per round", "on, chunked"):
+        same_end(f"telemetry {label} vs off, per round", off_end, tel[label], keys=off_keys)
+    same_end("telemetry on, chunked vs on, per round", on_end, tel["on, chunked"])
+    on = tel["on, chunked"].trainer
+    part, streak = on.metrics.vector("client_participation"), on.metrics.vector("outage_streak")
+    roll, ages = np.zeros(n, np.int32), []
+    for row in part:
+        roll = np.where(row > 0, 0, roll + 1).astype(np.int32)
+        ages.append(roll)
+    check(np.array_equal(part.sum(axis=1), np.asarray(on.log.participation))
+          and np.array_equal(streak, np.stack(ages)) and streak.dtype == np.int32
+          and on._streak.dtype == torch.int32 and on._streak.is_cuda,
+          "telemetry: the vectors do not reduce to participation or the streak recurrence")
+    st = on._scan_fn.stats
+    check(st["captures"] == 1 and st["captured_launches"] == {"fused_aggregate_cuda": 1},
+          f"telemetry chunked: {st['captures']} captures, launches {st['captured_launches']}")
+    print(f"[telemetry] colrel kernel T=1, {CHUNK_K} rounds: on bitwise off (params, server state, "
+          f"strategy state, every scalar), per round and as one chunk; on chunked bitwise on per "
+          f"round with the vectors and the streak; participation vectors {part.astype(int).tolist()}"
+          f", streak {streak.tolist()}, weight_drift {on.round_metrics['weight_drift']}; "
+          f"{engine_line(on._scan_fn)} [{card}]")
+    del tel, on
+    torch.cuda.empty_cache()
+
+    # (b) kill/resume at round CHUNK_K of 2 * CHUNK_K rounds, with telemetry, on
+    # the memory kernel path (kernel 4), int8 quantized (kernel 6, its codec's
+    # generator on the card) and no_trace (the sampler's CUDA generator); a
+    # fresh trainer resumes, then the captured uninterrupted trainer restores
+    res_rounds = 2 * CHUNK_K
+    res_paths = {
+        "memory kernel, markov": (dict(strategy="memory", strategy_options={"fused": "kernel"},
+                                       channel="markov"), {}, "fused_memory_update"),
+        "int8 quantized kernel": (dict(strategy="quantized",
+                                       strategy_options={"codec": "int8", "fused": "kernel"}),
+                                  {}, "fused_dequant_aggregate"),
+        "colrel kernel, no_trace on markov": (dict(strategy_options={"fused": "kernel"},
+                                                   channel="markov"), {"no_trace": True},
+                                              "fused_aggregate"),
+    }
+    for label, (kw, run_kw, kernel) in res_paths.items():
+        d = ck_root / kernel
+        ref = full_spec(**kw, local_steps=1, telemetry=True, ckpt_dir=str(d),
+                        ckpt_every=CHUNK_K)()
+        counted_run(f"{label}: uninterrupted", ref, res_rounds, {kernel: 2}, chunk=CHUNK_K,
+                    **run_kw)
+        check(CheckpointWriter(d).steps() == [CHUNK_K, res_rounds],
+              f"{label}: committed steps {CheckpointWriter(d).steps()}")
+        want = final_state(ref)
+        recs = list(ref.trainer.ckpt_records)
+        mid = CheckpointWriter(d).path_for(CHUNK_K)
+        res = full_spec(**kw, local_steps=1, telemetry=True, resume_from=str(mid))()
+        counted_run(f"{label}: resumed", res, res_rounds, {kernel: 2}, chunk=CHUNK_K, **run_kw)
+        same_end(f"{label}: resumed", want, res)
+        scan = res.trainer._sampled_scan_fn if run_kw else res.trainer._scan_fn
+        rst = dict(scan.stats)
+        check(rst["captures"] == 1 and rst["replays"] == CHUNK_K,
+              f"{label}: resumed run {rst['captures']} captures, {rst['replays']} replays")
+        ref_scan = ref.trainer._sampled_scan_fn if run_kw else ref.trainer._scan_fn
+        caps = ref_scan.stats["captures"]
+        counted_run(f"{label}: restored into the captured trainer", ref, res_rounds, {},
+                    chunk=CHUNK_K, resume_from=str(mid), **run_kw)
+        same_end(f"{label}: restored into the captured trainer", want, ref)
+        check(ref_scan.stats["captures"] == caps,
+              f"{label}: the restore into a captured trainer captured again")
+        print(f"[resume] {label}, T=1, {res_rounds} rounds in chunks of {CHUNK_K}, telemetry on, "
+              f"a checkpoint every chunk: a fresh trainer resumed at round {CHUNK_K} ends bitwise "
+              f"the uninterrupted run (every metric, the vectors, params, server and strategy "
+              f"state, streak, sampler state and generators), {rst['captures']} capture, "
+              f"{kernel} launched by its warm-up and capture; its first chunk "
+              f"{res.trainer.meter.chunks[0]['seconds']:.3f} s (warm-up {rst['warmup_s']:.3f} s, "
+              f"capture {rst['capture_s']:.3f} s, instantiate {rst['instantiate_s']:.3f} s); "
+              f"restored into the uninterrupted trainer, which had captured: bitwise again, "
+              f"captures still {ref_scan.stats['captures']} (the generators' states written into "
+              f"the registered objects are honoured by the replays) [{card}]")
+        print(f"[resume] {label}: checkpoints " + "; ".join(
+            f"step {r['step']}: {r['bytes']} bytes, the loop blocked {r['block_s'] * 1e3:.2f} ms "
+            f"(snapshot {r['snapshot_s'] * 1e3:.2f} ms), commit on the writer thread "
+            f"{r['commit_s'] * 1e3:.2f} ms" for r in recs))
+        del ref, res, scan, ref_scan
+        torch.cuda.empty_cache()
+    print(f"[resume] the checks of (a) and (b) took {time.perf_counter() - t4e:.1f} s")
+
+    # (c) s/round of the colrel kernel path at T=8, chunked (K=CHUNK_K), in
+    # turns: telemetry off, telemetry on, telemetry off with a checkpoint every
+    # chunk (two chunks a turn: the first save overlaps the second chunk, the
+    # final one is waited for at the run's end)
+    t_tc = time.perf_counter()
+    variants = {"telemetry off": dict(), "telemetry on": dict(telemetry=True),
+                "off, checkpoint every chunk": dict(ckpt_dir=str(ck_root / "timed"),
+                                                    ckpt_every=CHUNK_K, ckpt_keep=2)}
+    exps = {k: full_spec(strategy_options={"fused": "kernel"}, **kw)() for k, kw in
+            variants.items()}
+    for k in variants:  # an unmeasured chunk: the warm-up and the capture
+        exps[k].run(CHUNK_K, chunk=CHUNK_K)
+    torch.cuda.synchronize()
+    secs = {k: [] for k in variants}
+
+    def turn(k):
+        t = time.perf_counter()
+        exps[k].run(2 * CHUNK_K, chunk=CHUNK_K)
+        torch.cuda.synchronize()
+        secs[k].append((time.perf_counter() - t) / (2 * CHUNK_K))
+
+    order = list(variants)
+    for k in order + order[::-1]:
+        turn(k)
+    for k in order:
+        check(exps[k].trainer._scan_fn.stats["captures"] == 1, f"timing {k}: captured again")
+        print(f"[telemetry] s/round colrel kernel T=8 chunked K={CHUNK_K}, {k}, in turns: "
+              f"{[round(x, 4) for x in secs[k]]} (mean {statistics.mean(secs[k]):.4f}) [{card}]")
+    recs = exps["off, checkpoint every chunk"].trainer.ckpt_records[1:]  # after the warm-up's
+    print("[telemetry] the timed saves: " + "; ".join(
+        f"step {r['step']}: {r['bytes']} bytes, blocked {r['block_s'] * 1e3:.2f} ms, commit "
+        f"{r['commit_s'] * 1e3:.2f} ms" for r in recs) + f" [{card}]")
+    del exps
+    torch.cuda.empty_cache()
+    shutil.rmtree(ck_root, ignore_errors=True)
+    print(f"[telemetry] the timings took {time.perf_counter() - t_tc:.1f} s")
+    print(f"[telemetry] phase 4e wall {time.perf_counter() - t4e:.1f} s [{card}]")
+
     # -- 5. times at the main path's shapes --------------------------------
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     A = kernel_exp.trainer.A
@@ -2052,8 +2267,8 @@ def main():
         tok = res.prompts[:, :1]
         for label, fn in (
                 (f"one prefill step ({PF_B} x {PF_T} tokens)", lambda: prefill(sparams, batch)),
-                (f"{SV_P} serve steps ({SV_B} requests)", lambda: [
-                    sv_step(sparams, sv_cache, tok, t_) for t_ in range(SV_P)])):
+                (f"{SV_PROF} serve steps ({SV_B} requests)", lambda: [
+                    sv_step(sparams, sv_cache, tok, t_) for t_ in range(SV_PROF)])):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t = time.perf_counter()
                 fn()
@@ -2359,6 +2574,7 @@ def main():
           f"mixer's views (q, k broadcast over {H_} heads, v and y in (B, T, H, P) storage) "
           f"{views_ms:.4f} ms ({ssd_nbytes / views_ms / 1e9:.3f} TB/s) [{card}]")
 
+    print(f"[smoke] the script's wall, the build included: {time.perf_counter() - t_main:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

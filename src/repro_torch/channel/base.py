@@ -23,6 +23,11 @@ in nondecreasing order; the stream cannot rewind past its current block.
 The in-scan samplers draw from a ``torch.Generator``, not numpy, so they
 agree with the traced stream (and with the reference's samplers, which
 draw from ``jax.random``) in law, not draw for draw.
+
+``checkpoint_state()`` / ``restore_state(state)`` save and reinstate a
+channel's position in its stream: for a block-buffered channel the
+generator state from before its current block, so a restore regenerates
+that block bitwise.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.ckpt.schema import rng_from_json, rng_state_to_json
 from repro_torch.core.connectivity import LinkModel, sample_rounds
 
 __all__ = ["BlockBufferedChannel", "StaticChannel", "pair_lane_table", "stacked_trace",
@@ -50,7 +56,11 @@ class BlockBufferedChannel:
     Subclasses implement ``_generate_block(rounds) -> (ups, dds)`` with
     shapes ``(R, n)`` / ``(R, n, n)`` (or ``(R, C, m, m)``); per-round and
     bulk service read the same buffers, so both see bitwise-identical
-    streams.
+    streams.  Subclasses draw from one numpy ``Generator``, ``self._rng``;
+    the Gilbert–Elliott ones also carry their packed gate state,
+    ``self._gates``, across blocks.  Those two are the generator state
+    whose capture just before ``_generate_block`` makes that block's
+    regeneration deterministic (``_gen_state`` / ``_set_gen_state``).
     """
 
     def __init__(self, n: int, block: int = 256):
@@ -61,6 +71,8 @@ class BlockBufferedChannel:
         self._buf_start = 0  # first round of the current buffer
         self._ups = None
         self._dds = None
+        # generator state from before the current buffer's generation
+        self._pre_block = None
 
     @property
     def n(self) -> int:
@@ -69,6 +81,24 @@ class BlockBufferedChannel:
     def _generate_block(self, rounds: int):
         raise NotImplementedError
 
+    def _gen_state(self) -> dict:
+        gates = getattr(self, "_gates", None)
+        return {"rng": rng_state_to_json(self._rng),
+                "gates": None if gates is None else np.array(gates)}
+
+    def _set_gen_state(self, state: dict) -> None:
+        self._rng = rng_from_json(state["rng"])
+        if state["gates"] is not None:
+            self._gates = np.asarray(state["gates"], bool)
+
+    def _advance_block(self) -> None:
+        if self._ups is not None:
+            self._buf_start += self._ups.shape[0]
+        self._pre_block = self._gen_state()
+        ups, dds = self._generate_block(self.block)
+        self._ups = np.asarray(ups, np.float64)
+        self._dds = np.asarray(dds, np.float64)
+
     def _ensure(self, r: int) -> None:
         if r < self._buf_start:
             raise ValueError(
@@ -76,11 +106,29 @@ class BlockBufferedChannel:
                 f"(buffer starts at {self._buf_start})"
             )
         while self._ups is None or r >= self._buf_start + self._ups.shape[0]:
-            if self._ups is not None:
-                self._buf_start += self._ups.shape[0]
-            ups, dds = self._generate_block(self.block)
-            self._ups = np.asarray(ups, np.float64)
-            self._dds = np.asarray(dds, np.float64)
+            self._advance_block()
+
+    def checkpoint_state(self) -> dict:
+        """The stream position and generator state: rather than the tau
+        buffers, the generator state from before the current block and the
+        block's first round; a restore reinstates that state and drops the
+        buffers, so the next service regenerates the same block."""
+        gen = self._gen_state() if self._ups is None else self._pre_block
+        return {"kind": type(self).__name__, "block": self.block,
+                "buf_start": int(self._buf_start), "gen": gen}
+
+    def restore_state(self, state: dict) -> None:
+        """Inverse of :meth:`checkpoint_state` on a channel of the same kind
+        and block size."""
+        if state.get("kind") != type(self).__name__:
+            raise ValueError(f"checkpoint is for channel {state.get('kind')!r}; this "
+                             f"is a {type(self).__name__}")
+        if int(state["block"]) != self.block:
+            raise ValueError(f"checkpointed block size {state['block']} != {self.block} "
+                             "(the block size shapes the RNG stream)")
+        self._set_gen_state(state["gen"])
+        self._buf_start = int(state["buf_start"])
+        self._ups = self._dds = self._pre_block = None
 
     def tau_for_round(self, r: int) -> tuple[np.ndarray, np.ndarray]:
         self._ensure(r)

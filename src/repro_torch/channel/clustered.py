@@ -23,8 +23,9 @@ draw.  ``trace`` and ``tau_for_round`` read the same buffers.  The
 in-scan samplers of the chunked engine's no-trace mode,
 :func:`clustered_static_scan_sampler` and
 :func:`clustered_ge_scan_sampler`, draw one round per call from a
-``torch.Generator`` in the block layout.  The reference's generator state
-belongs to checkpointing (ROADMAP.md queue 1, item 15).
+``torch.Generator`` in the block layout.  Both channels checkpoint their
+numpy stream (and the Markov one its gate state) through
+:class:`~repro_torch.channel.base.BlockBufferedChannel`'s hooks.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from repro_torch.channel.base import stacked_trace
+from repro_torch.ckpt.schema import rng_from_json, rng_state_to_json
 from repro_torch.core.connectivity import LinkModel, sample_round
 from repro_torch.core.topology import mmwave_geometric
 
@@ -118,6 +119,36 @@ class MobilityChannel:
         # the geometry advances (and may be re-derived) every round, so
         # there is no block to vectorize
         return stacked_trace(self, start, rounds)
+
+    def checkpoint_state(self) -> dict:
+        """The full mobility state: the numpy stream, the geometry, and the
+        derived models of the current and later epochs.  The current
+        epoch's model was derived from positions at the epoch boundary,
+        which no longer exist mid-epoch, so it travels in the checkpoint;
+        earlier epochs are never served again and are dropped."""
+        cur = self._next // self.epoch
+        return {
+            "kind": type(self).__name__,
+            "rng": rng_state_to_json(self._rng),
+            "positions": np.array(self.positions),
+            "waypoints": np.array(self._waypoints),
+            "next": int(self._next),
+            "models": {str(e): {"p": np.asarray(m.p), "P": np.asarray(m.P),
+                                "E": np.asarray(m.E)}
+                       for e, m in self._models.items() if e >= cur},
+        }
+
+    def restore_state(self, state: dict) -> None:
+        if state.get("kind") != type(self).__name__:
+            raise ValueError(f"checkpoint is for channel {state.get('kind')!r}; this "
+                             f"is a {type(self).__name__}")
+        self._rng = rng_from_json(state["rng"])
+        self.positions = np.asarray(state["positions"], np.float64)
+        self._waypoints = np.asarray(state["waypoints"], np.float64)
+        self._next = int(state["next"])
+        self._models = {int(e): LinkModel(np.asarray(m["p"]), np.asarray(m["P"]),
+                                          np.asarray(m["E"]))
+                        for e, m in state["models"].items()}
 
     def model_for_round(self, r: int) -> LinkModel:
         e = r // self.epoch

@@ -16,6 +16,7 @@ the reference's events and alphas bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -49,6 +50,17 @@ class AdaptiveWeightSchedule:
         self.estimator = LinkEstimator(n, prior=cfg.prior, decay=cfg.decay,
                                        prune_below=cfg.prune_below)
         self.events: List[Dict[str, Any]] = []
+
+    def checkpoint_state(self) -> dict:
+        """The estimator's posterior and the re-opt event log, the log as one
+        JSON string (its values may be numpy scalars, which ``.item()``
+        makes plain)."""
+        return {"estimator": self.estimator.checkpoint_state(),
+                "events": json.dumps(self.events, default=lambda o: o.item())}
+
+    def restore_state(self, state: dict) -> None:
+        self.estimator.restore_state(state["estimator"])
+        self.events = json.loads(state["events"])
 
     def step(self, r: int, tau_up: np.ndarray, tau_dd: np.ndarray) -> Optional[np.ndarray]:
         """Ingest round r's realization; return a new A on re-opt rounds.

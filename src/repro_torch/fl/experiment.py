@@ -22,6 +22,7 @@ reference's init params through :func:`repro_torch.convert.params_from_jax`.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -43,9 +44,16 @@ from repro_torch.data.partition import partition_iid, partition_sort_and_partiti
 from repro_torch.data.pipeline import ClientDataset, make_federated_clients
 from repro_torch.data.synthetic import quadratic_problem, synthetic_cifar
 from repro_torch.fl.round import MODES
-from repro_torch.fl.trainer import FLTrainer, TrainLog, resolve_device, unported
+from repro_torch.fl.trainer import FLTrainer, TrainLog, resolve_device
 from repro_torch.models import cnn
 from repro_torch.optim import sgd, sgd_momentum
+from repro_torch.telemetry import (
+    CsvSummarySink,
+    JsonlSink,
+    MetricsLogger,
+    ProfileWindow,
+    RunManifest,
+)
 
 __all__ = ["TOPOLOGIES", "ExperimentSpec", "Experiment", "build_task", "build_experiment"]
 
@@ -63,12 +71,6 @@ TOPOLOGIES: Dict[str, Callable[[], LinkModel]] = {
 class ExperimentSpec:
     """Everything that defines one federated experiment, with the
     reference's fields and defaults (a test holds the two lists equal).
-    Fields whose feature is not ported yet raise ``NotImplementedError``
-    naming their ``ROADMAP.md`` item in :func:`build_experiment` when set
-    away from their defaults: the telemetry fields
-    ``telemetry``, ``metrics_dir``, ``profile_dir``, ``profile_start``,
-    ``profile_rounds``, ``log_every`` (item 14) and the checkpointing
-    fields (item 15).
 
     Task: ``model`` (``"cifar_cnn"``, ``"cifar_cnn_full"``,
     ``"quadratic"``), ``topology`` (a key of :data:`TOPOLOGIES` or a
@@ -97,9 +99,18 @@ class ExperimentSpec:
     Optimization (None = model-kind / paper defaults): ``lr``,
     ``weight_decay``, ``server_momentum``, ``batch_size``, ``seed``.
 
-    Observability and checkpointing: ``telemetry``, ``metrics_dir``,
-    ``profile_dir``, ``profile_start``, ``profile_rounds``, ``log_every``,
-    ``ckpt_dir``, ``ckpt_every``, ``ckpt_keep``, ``resume_from``.
+    Observability: ``telemetry`` (the device-resident vector metrics),
+    ``metrics_dir`` (``events.jsonl``, ``rounds.csv``, ``manifest.json``
+    and, at :meth:`Experiment.close`, ``vectors.npz``; implies
+    ``telemetry``), ``profile_dir`` / ``profile_start`` /
+    ``profile_rounds`` (a ``torch.profiler`` window written as a Chrome
+    trace), ``log_every`` (a stderr throughput line every N rounds; 0 =
+    off).
+
+    Checkpointing: ``ckpt_dir`` (the background writer's directory; None =
+    off), ``ckpt_every`` (rounds between saves; 0 = only at the end),
+    ``ckpt_keep`` (committed checkpoints kept), ``resume_from`` (a
+    checkpoint file or directory to restore before the run).
     """
 
     # -- task ----------------------------------------------------------
@@ -156,6 +167,7 @@ class Experiment:
     A: np.ndarray
     strategy: strategy_registry.AggregationStrategy
     copt_result: Optional[OptResult] = None
+    manifest: Optional[RunManifest] = None  # written when metrics_dir is set
 
     @property
     def log(self) -> TrainLog:
@@ -166,24 +178,32 @@ class Experiment:
         return self.trainer.params
 
     def run(self, rounds: Optional[int] = None, *, chunk: Optional[int] = None,
-            eval_every: int = 0, verbose: bool = False, no_trace: bool = False) -> TrainLog:
+            eval_every: int = 0, verbose: bool = False, no_trace: bool = False,
+            resume_from: Optional[str] = None) -> TrainLog:
         """``rounds`` (default ``spec.rounds``) rounds in chunks of ``chunk``
-        (default ``spec.chunk``); see :meth:`FLTrainer.run`."""
+        (default ``spec.chunk``), with the spec's ``log_every`` and
+        checkpointing, resuming from ``resume_from`` (default
+        ``spec.resume_from``); see :meth:`FLTrainer.run`."""
+        resume = resume_from if resume_from is not None else self.spec.resume_from
         return self.trainer.run(rounds if rounds is not None else self.spec.rounds,
                                 chunk=chunk if chunk is not None else self.spec.chunk,
-                                eval_every=eval_every, verbose=verbose, no_trace=no_trace)
+                                eval_every=eval_every, verbose=verbose, no_trace=no_trace,
+                                log_every=self.spec.log_every, ckpt_dir=self.spec.ckpt_dir,
+                                ckpt_every=self.spec.ckpt_every,
+                                ckpt_keep=self.spec.ckpt_keep, resume_from=resume)
+
+    def close(self) -> None:
+        """Finish the telemetry: the per-client summary event, the sinks'
+        flush, and with a ``metrics_dir`` the vector histories as
+        ``vectors.npz``."""
+        if self.spec.metrics_dir is not None:
+            self.trainer.metrics.save_vectors(pathlib.Path(self.spec.metrics_dir) / "vectors.npz")
+        self.trainer.metrics.close()
 
 
-def _check_ported(spec: ExperimentSpec) -> None:
+def _check_mode(spec: ExperimentSpec) -> None:
     if spec.mode not in MODES + ("async",):
         raise ValueError(f"unknown mode {spec.mode!r}; have {MODES + ('async',)}")
-    if (spec.telemetry or spec.metrics_dir is not None or spec.profile_dir is not None
-            or spec.profile_start != 0 or spec.profile_rounds != 4 or spec.log_every != 0):
-        raise unported("telemetry (telemetry, metrics_dir, profile_dir, profile_start, "
-                       "profile_rounds, log_every)", "item 14 (telemetry)")
-    if (spec.ckpt_dir is not None or spec.resume_from is not None
-            or spec.ckpt_every != 0 or spec.ckpt_keep != 3):
-        raise unported("checkpointing (ckpt_*, resume_from)", "item 15 (checkpointing)")
 
 
 def _resolve_topology(spec: ExperimentSpec) -> LinkModel:
@@ -325,7 +345,7 @@ def build_experiment(spec: ExperimentSpec, device=None) -> Experiment:
     from one spec, on ``device`` (the CUDA device unless given)."""
     if spec.model not in _MODEL_BUILDERS:
         raise KeyError(f"unknown model kind {spec.model!r}; have {sorted(_MODEL_BUILDERS)}")
-    _check_ported(spec)
+    _check_mode(spec)
     dev = resolve_device(device)
     channel = make_channel(spec.channel, _resolve_topology(spec), seed=spec.seed)
     # mobility derives its own (drifting) geometry; the round-0 model of the
@@ -345,12 +365,33 @@ def build_experiment(spec: ExperimentSpec, device=None) -> Experiment:
         strategy = strategy.calibrate(init_model, A)
     loss_fn, init_params, clients, client_opt, server_opt, local_steps, eval_fn = (
         build_task(spec, n, dev))
+    # a metrics_dir attaches the JSONL and CSV sinks (appending when
+    # resuming), writes the manifest before the run, and implies telemetry
+    metrics_logger = manifest = None
+    if spec.metrics_dir is not None:
+        mdir = pathlib.Path(spec.metrics_dir)
+        resuming = spec.resume_from is not None
+        metrics_logger = MetricsLogger([JsonlSink(mdir / "events.jsonl", resume=resuming),
+                                        CsvSummarySink(mdir / "rounds.csv", resume=resuming)])
+        codec = getattr(strategy, "codec", None)
+        manifest = RunManifest.collect(
+            dataclasses.asdict(spec), device=dev, strategy=strategy.name,
+            channel=spec.channel, codec=getattr(codec, "name", None), n_clients=n,
+            mode=spec.mode, local_steps=local_steps, resumed_from=spec.resume_from)
+        manifest.write(mdir)
+    profile = None
+    if spec.profile_dir is not None:
+        profile = ProfileWindow(spec.profile_dir, start=spec.profile_start,
+                                rounds=spec.profile_rounds)
     trainer = FLTrainer(
         loss_fn, init_params, init_model, A, clients, client_opt, server_opt,
         local_steps=local_steps, strategy=strategy, mode=spec.mode,
         async_options=dict(spec.async_options) or None, donate=spec.donate,
         segment_d=spec.segment_d, seed=spec.seed, eval_fn=eval_fn,
         channel=channel, adaptive=_adaptive_schedule(spec, n), device=dev,
+        telemetry=spec.telemetry or spec.metrics_dir is not None,
+        metrics=metrics_logger, profile=profile,
     )
     return Experiment(spec=spec, trainer=trainer, link_model=init_model,
-                      A=np.asarray(A), strategy=strategy, copt_result=copt_result)
+                      A=np.asarray(A), strategy=strategy, copt_result=copt_result,
+                      manifest=manifest)

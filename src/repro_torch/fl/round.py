@@ -31,6 +31,10 @@ same round body per call, the chunked engine ``FLTrainer.run(chunk=K)``
 drives.  On the CUDA device the body is captured once as a CUDA graph and
 replayed K times, the port's counterpart of the reference's compiled
 ``lax.scan``.
+
+``telemetry=True`` (in each ``make_*round_fn``) wraps the body with
+:func:`repro_torch.telemetry.device.instrument_round_fn`: one more carry,
+the ``(n,)`` int32 outage streak, and the per-client vector metrics.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from repro_torch.core import flatten
 from repro_torch.kernels import launch_counts
 from repro_torch.optim import Optimizer, global_norm
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext
+from repro_torch.telemetry.device import instrument_round_fn
 
 Params = Any
 
@@ -116,7 +121,7 @@ def _local_sgd(loss_fn: Callable, client_opt: Optimizer, params: Params,
 
 
 def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
-                  rc: RoundConfig):
+                  rc: RoundConfig, telemetry: bool = False):
     """Returns ``round(params, server_state, agg_state, batches, tau_up,
     tau_dd, A) -> (params, server_state, agg_state, metrics)``.
 
@@ -130,6 +135,14 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
     Outside ``per_client`` the round consumes only the strategy's scalar
     collapse, so a stateful or non-collapsible strategy raises
     ``ValueError`` here: its state would freeze at ``init_state``.
+
+    ``telemetry=True`` returns the instrumented round, ``round(params,
+    server_state, agg_state, batches, tau_up, tau_dd, A, streak) ->
+    (params, server_state, agg_state, streak, metrics)``, whose metrics
+    add the ``(n,)`` vectors of
+    :data:`~repro_torch.telemetry.device.VECTOR_METRICS` and the
+    ``weight_drift`` scalar; the body is untouched, so the trajectory and
+    the scalar metrics are bitwise those of the plain round.
     """
     strategy = rc.resolve_strategy()
     ctx = rc.execution_context()
@@ -225,11 +238,14 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
         return new_params, server_state, agg_state, metrics
 
     round_fn.metric_keys = METRIC_KEYS
+    if telemetry:
+        return instrument_round_fn(round_fn, strategy.wire_bits_per_coord)
     return round_fn
 
 
 def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
-                       rc: RoundConfig, channel_sampler: Optional[Callable] = None):
+                       rc: RoundConfig, channel_sampler: Optional[Callable] = None,
+                       telemetry: bool = False):
     """The chunked multi-round engine: K rounds of :func:`make_round_fn`'s
     body per call, with one host round trip.
 
@@ -249,6 +265,12 @@ def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Opt
     :data:`METRIC_KEYS`, eight for the async round) to a ``(K,)`` device
     tensor.
 
+    ``telemetry=True`` instruments the body (see :func:`make_round_fn`):
+    both signatures take one more trailing argument, the ``(n,)`` int32
+    streak, and return it before ``metrics`` (after ``gen`` in the sampled
+    one); the streak rides the carry and the vector metrics come back
+    ``(K, n)``, each from its own device buffer in its own dtype.
+
     On the CPU the K rounds run as a plain loop over the round body.  On a
     CUDA device one round is captured as a CUDA graph and replayed K times:
     the carry, the chunk's batches and taus, ``A`` and a ``(K, len(metric_keys))``
@@ -267,7 +289,8 @@ def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Opt
     the captured K reuses the graph; anything else captures anew.  The
     statistics of the last capture are in ``scan.stats``.
     """
-    return ScanRound(make_round_fn(loss_fn, client_opt, server_opt, rc), channel_sampler)
+    return ScanRound(make_round_fn(loss_fn, client_opt, server_opt, rc, telemetry=telemetry),
+                     channel_sampler)
 
 
 class ScanRound:
@@ -288,9 +311,9 @@ class ScanRound:
         """The captured round (kept, so its nodes can be counted), or None."""
         return self._slot.graph if self._slot is not None else None
 
-    def __call__(self, params, server_state, agg_state, batches, a, b, A):
+    def __call__(self, params, server_state, agg_state, batches, a, b, A, *streak):
         sampled = self.sample_fn is not None
-        carry = (params, server_state, agg_state) + ((a,) if sampled else ())
+        carry = (params, server_state, agg_state) + ((a,) if sampled else ()) + streak
         xs = dict(batches)
         gen = b if sampled else None
         taus = None if sampled else (a, b)
@@ -303,7 +326,9 @@ class ScanRound:
                               gen, K, sig)
             self._slot = slot
         out, metrics = slot.run(carry, xs, taus, A, K)
-        return (*out, gen, metrics) if sampled else (*out, metrics)
+        if sampled:  # the generator goes after the channel state
+            return (*out[:4], gen, *out[4:], metrics)
+        return (*out, metrics)
 
 
 def _signature(carry, xs, taus, A, gen):
@@ -344,6 +369,10 @@ class _RoundSlot:
         self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
         self.keys = round_fn.metric_keys
         self.metrics = torch.zeros((K, len(self.keys)), dtype=torch.float32, device=dev)
+        # the instrumented round's (n,) vectors, each in its own dtype; the
+        # streak, the carry's last leaf, gives n
+        self.vectors = {k: torch.zeros((K, leaves[-1].shape[0]), dtype=dt, device=dev)
+                        for k, dt in getattr(round_fn, "vector_dtypes", {}).items()}
         self.graph = None
         if dev.type == "cuda":
             self._capture(carry, xs, taus, A, K)
@@ -354,15 +383,19 @@ class _RoundSlot:
         ``counter`` advanced.  What the graph captures."""
         i = self.counter
         x = {k: torch.index_select(v, 0, i)[0] for k, v in self.xs.items()}
-        params, server_state, agg_state, *cs = tree.unflatten(self.treedef, self.bufs)
+        # the carry past agg_state: the channel state (sampled), the streak
+        # (instrumented)
+        params, server_state, agg_state, *rest = tree.unflatten(self.treedef, self.bufs)
         if self.taus is None:
-            tau_up, tau_dd, channel_state = self.sample_fn(cs[0], self.gen)
-            cs = [channel_state]
+            tau_up, tau_dd, rest[0] = self.sample_fn(rest[0], self.gen)
         else:
             tau_up, tau_dd = (torch.index_select(t, 0, i)[0] for t in self.taus)
-        params, server_state, agg_state, m = self.round_fn(
-            params, server_state, agg_state, x, tau_up, tau_dd, self.A)
-        new, treedef = tree.flatten((params, server_state, agg_state, *cs))
+        args = (params, server_state, agg_state, x, tau_up, tau_dd, self.A)
+        if self.vectors:
+            params, server_state, agg_state, rest[-1], m = self.round_fn(*args, rest[-1])
+        else:
+            params, server_state, agg_state, m = self.round_fn(*args)
+        new, treedef = tree.flatten((params, server_state, agg_state, *rest))
         if treedef != self.treedef:
             raise RuntimeError("the round changed the structure of its carry")
         for buf, v in zip(self.bufs, new):
@@ -377,6 +410,8 @@ class _RoundSlot:
             else:
                 buf.copy_(v)
         self.metrics.index_copy_(0, i, torch.stack([m[k].float() for k in self.keys])[None])
+        for k, buf in self.vectors.items():
+            buf.index_copy_(0, i, m[k][None])
         i.add_(1)
 
     def _load(self, carry, xs, taus, A, K: int) -> None:
@@ -459,12 +494,13 @@ class _RoundSlot:
         if self.graph is not None:
             self.stats["replays"] += K
         metrics = self.metrics[:K].clone()
-        return (tree.unflatten(self.treedef, self.bufs),
-                {k: metrics[:, j] for j, k in enumerate(self.keys)})
+        out = {k: metrics[:, j] for j, k in enumerate(self.keys)}
+        out.update((k, v[:K].clone()) for k, v in self.vectors.items())
+        return tree.unflatten(self.treedef, self.bufs), out
 
 
 def make_async_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
-                        rc: RoundConfig):
+                        rc: RoundConfig, telemetry: bool = False):
     """The async round: :func:`make_round_fn`'s ``per_client`` round over an
     async strategy (``async_colrel``, or an
     :class:`~repro_torch.strategies.AsyncRelayStrategy` around the desired
@@ -478,7 +514,8 @@ def make_async_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Op
       update.
 
     A sync strategy raises ``ValueError`` rather than running sync
-    semantics under the async name.
+    semantics under the async name.  ``telemetry=True`` instruments the
+    round as :func:`make_round_fn` does.
     """
     strategy = rc.resolve_strategy()
     if not getattr(strategy, "is_async", False):
@@ -496,13 +533,17 @@ def make_async_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Op
         return params, server_state, agg_state, metrics
 
     round_fn.metric_keys = METRIC_KEYS + ASYNC_METRIC_KEYS
+    if telemetry:
+        return instrument_round_fn(round_fn, strategy.wire_bits_per_coord)
     return round_fn
 
 
 def make_async_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
-                             rc: RoundConfig, channel_sampler: Optional[Callable] = None):
+                             rc: RoundConfig, channel_sampler: Optional[Callable] = None,
+                             telemetry: bool = False):
     """The chunked async engine: :func:`make_scan_round_fn`'s signatures
     over :func:`make_async_round_fn`'s body; the age vector and staging
     buffer are static buffers of the captured round, and the staleness
     metrics come back ``(K,)`` like the others."""
-    return ScanRound(make_async_round_fn(loss_fn, client_opt, server_opt, rc), channel_sampler)
+    return ScanRound(make_async_round_fn(loss_fn, client_opt, server_opt, rc,
+                                         telemetry=telemetry), channel_sampler)

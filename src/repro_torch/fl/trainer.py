@@ -18,15 +18,29 @@ trainer does not assume oracle link knowledge: it estimates ``(p, P, E)``
 from the realized taus and re-runs COPT-alpha every K rounds, swapping
 the fresh alpha in as a new ``A`` tensor that the next round (or the next
 chunk, which copies ``A`` into its captured round's static buffer) reads.
-Options of the reference that this package does not have yet raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 Prefer building a trainer through
 :func:`repro_torch.fl.experiment.build_experiment`.
+
+**Telemetry**: every metric stream of both paths goes through one
+:class:`~repro_torch.telemetry.MetricsLogger` append path, with the
+:class:`TrainLog` facade attached (``trainer.log is trainer.metrics.log``).
+``telemetry=True`` runs the instrumented round (per-client participation
+and bits-on-air vectors, the device-resident outage-streak carry, the
+unbiasedness drift), and ``profile=`` / ``run(log_every=)`` give the
+``torch.profiler`` window and the throughput readout.  Off by default; the
+default path's streams are unchanged to the bit.
+
+**Checkpoint/resume**: ``run(ckpt_dir=..., ckpt_every=..., resume_from=...)``
+saves the complete run state at round or chunk boundaries through a
+background writer and continues a restored run bitwise;
+``save_checkpoint`` / ``restore`` do the same by hand.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import pathlib
+import sys
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -35,6 +49,8 @@ import torch
 from repro_torch import strategies as strategy_registry
 from repro_torch import tree
 from repro_torch.channel.base import StaticChannel
+from repro_torch.ckpt.schema import capture_run_state, restore_run_state, rng_state_to_json
+from repro_torch.ckpt.writer import AsyncCheckpointer, CheckpointWriter, read_state, write_state
 from repro_torch.core import flatten
 from repro_torch.core.connectivity import LinkModel
 from repro_torch.core.weights import variance_S
@@ -47,21 +63,18 @@ from repro_torch.fl.round import (
     make_scan_round_fn,
 )
 from repro_torch.optim import Optimizer
+from repro_torch.telemetry import (
+    CompileTracker,
+    MetricsLogger,
+    ProfileWindow,
+    ThroughputMeter,
+    TrainLog,
+    init_streak,
+)
 
 Params = Any
 
-__all__ = ["TrainLog", "FLTrainer", "resolve_device", "unported"]
-
-# round metric -> its TrainLog field; the others (delta_norm, the async
-# staleness metrics) are kept in FLTrainer.round_metrics, as the
-# reference keeps them in its round events
-_LOG_FIELDS = {"loss": "loss", "participation": "participation",
-               "uplink_bits": "uplink_bits", "weight_sum": "weight_sums"}
-
-
-def unported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to repro_torch yet: ROADMAP.md queue 1, {item}")
+__all__ = ["TrainLog", "FLTrainer", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -74,26 +87,6 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available; repro_torch runs on the CUDA device by "
             "default. Pass device='cpu' to run on the CPU.")
     return torch.device("cuda")
-
-
-@dataclasses.dataclass
-class TrainLog:
-    """Per-round metric streams, under the reference's field names."""
-
-    rounds: List[int] = dataclasses.field(default_factory=list)
-    loss: List[float] = dataclasses.field(default_factory=list)
-    eval_rounds: List[int] = dataclasses.field(default_factory=list)
-    eval_metrics: List[Dict[str, float]] = dataclasses.field(default_factory=list)
-    participation: List[float] = dataclasses.field(default_factory=list)
-    uplink_bits: List[float] = dataclasses.field(default_factory=list)
-    weight_sums: List[float] = dataclasses.field(default_factory=list)
-    reopt_rounds: List[int] = dataclasses.field(default_factory=list)
-    est_p_err: List[float] = dataclasses.field(default_factory=list)
-    S_est: List[float] = dataclasses.field(default_factory=list)
-    S_true: List[float] = dataclasses.field(default_factory=list)
-
-    def to_dict(self):
-        return dataclasses.asdict(self)
 
 
 class FLTrainer:
@@ -117,6 +110,8 @@ class FLTrainer:
         channel=None,
         adaptive=None,
         telemetry: bool = False,
+        metrics: Optional[MetricsLogger] = None,
+        profile: Optional[ProfileWindow] = None,
         async_options: Optional[Dict[str, Any]] = None,
         donate: bool = True,
         segment_d: int = 0,
@@ -134,9 +129,11 @@ class FLTrainer:
         So ``params``, ``server_state`` or ``agg_state`` read from the
         trainer may change under the next round.  ``donate=False`` keeps
         them: each round gets clones of the strategy state, and the
-        trainer keeps clones of the carry a chunk returns."""
-        if telemetry:
-            raise unported("telemetry", "item 14 (telemetry)")
+        trainer keeps clones of the carry a chunk returns.
+
+        ``telemetry=True`` runs the instrumented round; ``metrics`` is the
+        logger every stream goes through (a facade-only one by default) and
+        ``profile`` an optional :class:`~repro_torch.telemetry.ProfileWindow`."""
         self.device = resolve_device(device)
         self.strategy = strategy_registry.resolve(strategy)
         if mode == "async":
@@ -183,9 +180,20 @@ class FLTrainer:
         self.server_state = server_opt.init(self.params)
         self.agg_state = self.strategy.init_state(n, flatten.flat_spec(self.params).d,
                                                   device=self.device)
+        self.telemetry = bool(telemetry)
+        self.metrics = metrics if metrics is not None else MetricsLogger()
+        self.log = self.metrics.log
+        self.profile = profile
+        self.meter = ThroughputMeter()
+        self.compiles = CompileTracker()
+        self._warm_fns: set = set()
+        self._streak = init_streak(n, self.device) if self.telemetry else None
+        self._log_every = 0
+        self._last_tlog = 0
         make_fn = make_async_round_fn if self.async_mode else make_round_fn
         self._make_scan_fn = make_async_scan_round_fn if self.async_mode else make_scan_round_fn
-        self._round_fn = make_fn(loss_fn, client_opt, server_opt, self.rc)
+        self._round_fn = make_fn(loss_fn, client_opt, server_opt, self.rc,
+                                 telemetry=self.telemetry)
         self._opts = (loss_fn, client_opt, server_opt)
         self._scan_fn = None  # built on the first chunked run
         # no-trace mode: the in-scan sampler's engine and its carry
@@ -193,10 +201,23 @@ class FLTrainer:
         self._sampled_scan_fn = None
         self._channel_state = None
         self._channel_gen = None
+        # checkpoint/resume: the round counter, the clients' stream states at
+        # the consumed-round boundary (the chunked engine stacks the next
+        # chunk's batches past it), and the writer of the current run
         self.round = 0
-        self.log = TrainLog()
-        #: every metric the round returns, by its key, one float a round
-        self.round_metrics: Dict[str, List[float]] = {}
+        self._data_rng_snapshot: Optional[List[str]] = None
+        self._ckpt: Optional[AsyncCheckpointer] = None
+        self._ckpt_every = 0
+        self._ckpt_last = -1
+        #: one dict a periodic or final save: ``step``, ``block_s`` (the
+        #: loop's seconds in capture and snapshot), ``snapshot_s``, and once
+        #: committed ``commit_s`` (the writer thread's) and ``bytes``
+        self.ckpt_records: List[Dict[str, Any]] = []
+
+    @property
+    def round_metrics(self) -> Dict[str, List[float]]:
+        """Every scalar metric the round returns, by its key, one float a round."""
+        return self.metrics.round_metrics
 
     def _own(self, carry):
         """``carry`` as the trainer keeps it: itself, or with ``donate=False``
@@ -219,41 +240,133 @@ class FLTrainer:
             out = {k: np.ascontiguousarray(v[:, :, 0]) for k, v in out.items()}
         return {k: self._to_device(v) for k, v in out.items()}
 
-    def _log_rounds(self, r: int, metrics: Dict[str, torch.Tensor]) -> None:
-        """Append rounds ``r, r+1, ...`` from 0-d or ``(K,)`` metrics, with
-        one device-to-host copy, widened to float64."""
-        keys = list(metrics)
-        values = torch.stack([metrics[k].reshape(-1) for k in keys]).cpu().double().tolist()
-        self.log.rounds.extend(range(r, r + len(values[0])))
-        for k, v in zip(keys, values):
-            self.round_metrics.setdefault(k, []).extend(v)
-            if k in _LOG_FIELDS:
-                getattr(self.log, _LOG_FIELDS[k]).extend(v)
+    # -- checkpoint/resume -------------------------------------------------
+    def _client_rng_states(self) -> List[str]:
+        """The clients' data-stream states at the consumed-round boundary:
+        the snapshot ``_run_chunks`` takes before it stacks the next chunk's
+        batches, or the live states."""
+        if self._data_rng_snapshot is not None:
+            return list(self._data_rng_snapshot)
+        return [rng_state_to_json(c._rng) for c in self.clients]
+
+    def save_checkpoint(self, path) -> pathlib.Path:
+        """Write the complete run state to one file, synchronously."""
+        write_state(path, capture_run_state(self))
+        return pathlib.Path(path)
+
+    def restore(self, source) -> int:
+        """Restore from a checkpoint file or directory (its latest step) into
+        a trainer assembled like the checkpointed one; returns the restored
+        round counter."""
+        p = pathlib.Path(source)
+        state = CheckpointWriter(p).load() if p.is_dir() else read_state(p)
+        restore_run_state(self, state)
+        return self.round
+
+    def _save_async(self) -> None:
+        t0 = time.perf_counter()
+        record = self._ckpt.save(self.round, capture_run_state(self))
+        record["block_s"] = time.perf_counter() - t0
+        self.ckpt_records.append(record)
+        self._ckpt_last = self.round
+
+    def _saves_at(self, r: int) -> bool:
+        """Whether the boundary before round ``r`` takes a periodic save."""
+        return (self._ckpt is not None and self._ckpt_every > 0
+                and r % self._ckpt_every == 0 and r != self._ckpt_last)
+
+    def _maybe_ckpt(self) -> None:
+        """Periodic save at a round or chunk boundary."""
+        if self._saves_at(self.round):
+            self._save_async()
+
+    def _finish_ckpt(self) -> None:
+        """End of run: commit a final checkpoint, drain, stop the writer."""
+        if self._ckpt is None:
+            return
+        try:
+            if self.round != self._ckpt_last:
+                self._save_async()
+            self._ckpt.wait()
+        finally:
+            self._ckpt.close()
+            self._ckpt = None
+
+    # -- metrics -------------------------------------------------------------
+    def _log_compile_growth(self, r: int) -> None:
+        """``health.recompile`` for captures of an engine past its first."""
+        fresh = {}
+        for name, growth in self.compiles.check().items():
+            if name in self._warm_fns:
+                fresh[name] = growth
+            else:
+                self._warm_fns.add(name)
+        if fresh:
+            self.metrics.log_recompiles(fresh, r)
+
+    def _maybe_log_throughput(self, r_next: int) -> None:
+        if not self._log_every or r_next - self._last_tlog < self._log_every:
+            return
+        self._last_tlog = r_next
+        print(f"[telemetry] round {r_next}: {self.meter.rounds_per_sec():.2f} rounds/s "
+              f"({self.meter.total_rounds} rounds in {self.meter.total_seconds:.2f}s)",
+              file=sys.stderr)
+
+    def _end_block(self, r: int, k: int, metrics, tau_up, tau_dd, eval_every: int,
+                   verbose: bool) -> None:
+        """The host's work after rounds ``[r, r + k)`` ran (one round or one
+        chunk): stop the clock on the metrics, close the profile window,
+        log, re-optimize alpha, evaluate, and checkpoint."""
+        dt = self.meter.stop(k, fence=metrics)
+        if self.profile is not None:
+            self.profile.maybe_stop(r + k)
+        self.metrics.log_timing(r, k, dt)
+        self._log_compile_growth(r + k - 1)
+        self.metrics.log_rounds(r, metrics, k)
+        if self.adaptive is not None:
+            for i in range(k):
+                swapped = self._ingest_adaptive(r + i, tau_up[i], tau_dd[i], verbose)
+                if swapped and i != k - 1:  # guarded by _effective_chunk
+                    raise RuntimeError(
+                        f"adaptive re-opt fired mid-chunk (round {r + i}, chunk "
+                        f"[{r}, {r + k})); the cadence must be a multiple of chunk")
+        self._maybe_eval(r + k - 1, eval_every, verbose)
+        self._maybe_log_throughput(r + k)
+        self.round = r + k
+        self._maybe_ckpt()
+
+    def _start_block(self, r: int) -> None:
+        if self.profile is not None:
+            self.profile.maybe_start(r)
+        self.meter.start()
 
     def _maybe_eval(self, r: int, eval_every: int, verbose: bool) -> None:
         if eval_every and (r + 1) % eval_every == 0 and self.eval_fn is not None:
-            em = {k: float(v) for k, v in self.eval_fn(self.params).items()}
-            self.log.eval_rounds.append(r)
-            self.log.eval_metrics.append(em)
+            em = self.eval_fn(self.params)
+            self.metrics.log_eval(r, em)
             if verbose:
                 print(f"  round {r+1:4d}  loss={self.log.loss[-1]:.4f}  " +
                       "  ".join(f"{k}={v:.4f}" for k, v in em.items()))
         elif verbose and (r + 1) % 10 == 0:
             print(f"  round {r+1:4d}  loss={self.log.loss[-1]:.4f}")
 
+    def _streak_arg(self) -> tuple:
+        return (self._streak,) if self.telemetry else ()
+
     def _run_one(self, r: int, eval_every: int, verbose: bool) -> None:
         """One communication round."""
+        self._start_block(r)
         tau_up, tau_dd = self.channel.tau_for_round(r)
         batches = {k: v[0] for k, v in self._stack_batches(1).items()}
-        (self.params, self.server_state, self.agg_state, metrics) = self._round_fn(
+        *carry, metrics = self._round_fn(
             self.params, self.server_state, self._own(self.agg_state), batches,
             self._to_device(tau_up, torch.float32), self._to_device(tau_dd, torch.float32),
-            self.A)
-        self._log_rounds(r, metrics)
-        if self.adaptive is not None:
-            self._ingest_adaptive(r, tau_up, tau_dd, verbose)
-        self._maybe_eval(r, eval_every, verbose)
-        self.round = r + 1
+            self.A, *self._streak_arg())
+        self.params, self.server_state, self.agg_state, *streak = carry
+        if self.telemetry:
+            self._streak = streak[0]
+        self._data_rng_snapshot = None  # the live streams sit at the boundary
+        self._end_block(r, 1, metrics, tau_up[None], tau_dd[None], eval_every, verbose)
 
     def _ingest_adaptive(self, r: int, tau_up: np.ndarray, tau_dd: np.ndarray,
                          verbose: bool) -> bool:
@@ -266,10 +379,9 @@ class FLTrainer:
         self.A = torch.as_tensor(np.asarray(A_new), dtype=torch.float32).to(self.device)
         true_m = self.channel.model_for_round(r)
         info = self.adaptive.events[-1]
-        self.log.reopt_rounds.append(r)
-        self.log.est_p_err.append(self.adaptive.estimator.errors(true_m)["p"])
-        self.log.S_est.append(float(info["S_est"]))
-        self.log.S_true.append(float(variance_S(true_m, A_new)))
+        self.metrics.log_reopt(r, S_est=float(info["S_est"]),
+                               S_true=float(variance_S(true_m, A_new)),
+                               p_err=self.adaptive.estimator.errors(true_m)["p"])
         if verbose:
             print(f"  round {r+1:4d}  re-opt alpha: S_est={self.log.S_est[-1]:.3f} "
                   f"S_true={self.log.S_true[-1]:.3f} p_err={self.log.est_p_err[-1]:.3f}")
@@ -287,33 +399,40 @@ class FLTrainer:
             return 1
         return chunk
 
+    def _take_carry(self, carry) -> None:
+        """Keep a chunk's returned carry: params, server and strategy state,
+        then the streak when instrumented."""
+        self.params, self.server_state, self.agg_state, *streak = self._own(tuple(carry))
+        if self.telemetry:
+            self._streak = streak[0]
+
     def _run_chunks(self, r0: int, n_chunks: int, k: int, eval_every: int,
                     verbose: bool) -> None:
         """``n_chunks`` chunks of ``k`` rounds through the chunked engine."""
         if self._scan_fn is None:
-            self._scan_fn = self._make_scan_fn(*self._opts, self.rc)
+            self._scan_fn = self._make_scan_fn(*self._opts, self.rc, telemetry=self.telemetry)
+            self.compiles.register("scan_fn", self._scan_fn)
         batches = self._stack_batches(k)
         for c in range(n_chunks):
             r = r0 + c * k
+            self._start_block(r)
             tau_up, tau_dd = self.channel.trace(r, k)
             *carry, metrics = self._scan_fn(
                 self.params, self.server_state, self.agg_state, batches,
                 self._to_device(tau_up, torch.float32), self._to_device(tau_dd, torch.float32),
-                self.A)
-            self.params, self.server_state, self.agg_state = self._own(tuple(carry))
+                self.A, *self._streak_arg())
+            self._take_carry(carry)
             # the chunk runs on the device while the host stacks the next
-            # chunk's batches (the same client streams, in the same order)
-            batches = self._stack_batches(k) if c + 1 < n_chunks else None
-            self._log_rounds(r, metrics)
-            if self.adaptive is not None:
-                for i in range(k):
-                    swapped = self._ingest_adaptive(r + i, tau_up[i], tau_dd[i], verbose)
-                    if swapped and i != k - 1:  # guarded by _effective_chunk
-                        raise RuntimeError(
-                            f"adaptive re-opt fired mid-chunk (round {r + i}, chunk "
-                            f"[{r}, {r + k})); the cadence must be a multiple of chunk")
-            self._maybe_eval(r + k - 1, eval_every, verbose)
-            self.round = r + k
+            # chunk's batches (the same client streams, in the same order); a
+            # periodic save at this boundary needs the streams from before
+            # that (the final save follows the last chunk, which prefetches
+            # nothing)
+            prefetch = c + 1 < n_chunks
+            self._data_rng_snapshot = (
+                [rng_state_to_json(cl._rng) for cl in self.clients]
+                if prefetch and self._saves_at(r + k) else None)
+            batches = self._stack_batches(k) if prefetch else None
+            self._end_block(r, k, metrics, tau_up, tau_dd, eval_every, verbose)
 
     def _run_chunks_sampled(self, r0: int, k: int, eval_every: int, verbose: bool) -> None:
         """One chunk of ``k`` rounds whose taus are drawn inside the round by
@@ -323,20 +442,27 @@ class FLTrainer:
         if self._sampled_scan_fn is None:
             init_fn, sample_fn = self.channel.scan_sampler(self.device)
             self._sampled_scan_fn = self._make_scan_fn(*self._opts, self.rc,
-                                                       channel_sampler=sample_fn)
-            self._channel_gen = torch.Generator(device=self.device).manual_seed(self._seed)
-            self._channel_state = init_fn(self._channel_gen)
-        *carry, self._channel_gen, metrics = self._sampled_scan_fn(
+                                                       channel_sampler=sample_fn,
+                                                       telemetry=self.telemetry)
+            self.compiles.register("sampled_scan_fn", self._sampled_scan_fn)
+            # a restored run arrives with the sampler's carry already set
+            if self._channel_gen is None:
+                self._channel_gen = torch.Generator(device=self.device).manual_seed(self._seed)
+                self._channel_state = init_fn(self._channel_gen)
+        self._start_block(r0)
+        p, ss, ag, self._channel_state, self._channel_gen, *rest = self._sampled_scan_fn(
             self.params, self.server_state, self.agg_state, self._stack_batches(k),
-            self._channel_state, self._channel_gen, self.A)
-        (self.params, self.server_state, self.agg_state,
-         self._channel_state) = self._own(tuple(carry))
-        self._log_rounds(r0, metrics)
-        self._maybe_eval(r0 + k - 1, eval_every, verbose)
-        self.round = r0 + k
+            self._channel_state, self._channel_gen, self.A, *self._streak_arg())
+        *streak, metrics = rest
+        self._take_carry((p, ss, ag, *streak))
+        self._channel_state = self._own(self._channel_state)
+        self._data_rng_snapshot = None  # no prefetch on this path
+        self._end_block(r0, k, metrics, None, None, eval_every, verbose)
 
     def run(self, rounds: int, *, chunk: int = 1, eval_every: int = 0,
-            verbose: bool = False, no_trace: bool = False) -> TrainLog:
+            verbose: bool = False, no_trace: bool = False, log_every: int = 0,
+            ckpt_dir=None, ckpt_every: int = 0, ckpt_keep: int = 3,
+            resume_from=None) -> TrainLog:
         """Train for ``rounds`` communication rounds.
 
         ``chunk=K`` runs K rounds per call of the chunked engine (on the
@@ -351,8 +477,25 @@ class FLTrainer:
         channel's ``scan_sampler``, in chunks of K (the last one shorter):
         the same law as the traced stream, not the same draws.  It needs a
         channel with a ``scan_sampler`` and no adaptive schedule.
+
+        ``log_every=N`` prints the cumulative rounds/s to stderr every N
+        rounds (``self.meter`` measures it either way).
+
+        **Checkpoint/resume.** ``ckpt_dir`` saves the complete run state
+        every ``ckpt_every`` rounds (0: only at the end) through a
+        background writer, keeping the last ``ckpt_keep``.  Chunked,
+        ``ckpt_every`` must be a multiple of the chunk, since the host sees
+        only chunk boundaries.  ``resume_from`` (a checkpoint file, or a
+        directory whose latest committed step is taken) restores first and
+        makes ``rounds`` the total target: ``run(100, resume_from=c40)``
+        trains rounds 40..99 and continues the uninterrupted run bitwise.
         """
-        start, end = self.round, self.round + rounds
+        if resume_from is not None:
+            self.restore(resume_from)
+        start = self.round
+        end = rounds if resume_from is not None else start + rounds
+        if end < start:
+            raise ValueError(f"resume target {end} is behind the restored round {start}")
         k = self._effective_chunk(int(chunk), eval_every)
         if no_trace:
             if not hasattr(self.channel, "scan_sampler"):
@@ -362,16 +505,42 @@ class FLTrainer:
                 raise ValueError(
                     "no_trace is incompatible with adaptive re-optimization: the estimator "
                     "consumes realized taus on the host, which no_trace never materializes")
-            for r in range(start, end, k):
-                self._run_chunks_sampled(r, min(k, end - r), eval_every, verbose)
-            return self.log
-        r = start
-        while r < end:
-            if k > 1 and r % k == 0 and r + k <= end:
-                n_chunks = (end - r) // k
-                self._run_chunks(r, n_chunks, k, eval_every, verbose)
-                r += n_chunks * k
-            else:
-                self._run_one(r, eval_every, verbose)
-                r += 1
+        self._ckpt_every = int(ckpt_every)
+        if ckpt_dir is not None:
+            if self._ckpt_every > 0 and k > 1 and self._ckpt_every % k != 0:
+                raise ValueError(
+                    f"ckpt_every={ckpt_every} must be a multiple of the chunk size {k}: "
+                    "the chunked engine only reaches the host at chunk boundaries")
+            self._ckpt = AsyncCheckpointer(ckpt_dir, keep=ckpt_keep)
+            self._ckpt_last = -1
+        self._log_every = int(log_every)
+        self._last_tlog = start
+        try:
+            r = start
+            while r < end:
+                if no_trace:
+                    n = min(k, end - r)
+                    self._run_chunks_sampled(r, n, eval_every, verbose)
+                elif k > 1 and r % k == 0 and r + k <= end:
+                    n = (end - r) // k * k
+                    self._run_chunks(r, n // k, k, eval_every, verbose)
+                else:
+                    n = 1
+                    self._run_one(r, eval_every, verbose)
+                r += n
+        except BaseException:
+            if self._ckpt is not None:  # drain what was saved; no final save
+                self._ckpt.close()
+                self._ckpt = None
+            raise
+        return self._finish_run()
+
+    def _finish_run(self) -> TrainLog:
+        """End of run: the final checkpoint and the writer's drain, a profile
+        window left open, the sinks flushed (the logger stays open: ``run``
+        may be called again; owners call ``self.metrics.close()``)."""
+        self._finish_ckpt()
+        if self.profile is not None:
+            self.profile.close()
+        self.metrics.flush()
         return self.log

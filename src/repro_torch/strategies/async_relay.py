@@ -127,11 +127,13 @@ class AsyncRelayStrategy(AggregationStrategy):
         return {"age": state["age"], "staging": state["staging"],
                 "inner": self.inner.checkpoint_state(state["inner"])}
 
-    def restore_state(self, saved, *, device=None) -> State:
+    def restore_state(self, saved, *, device=None, like=None) -> State:
         return {"age": torch.as_tensor(saved["age"], dtype=torch.int32, device=device),
                 "staging": torch.as_tensor(saved["staging"], dtype=torch.float32,
                                            device=device),
-                "inner": self.inner.restore_state(saved["inner"], device=device)}
+                "inner": self.inner.restore_state(
+                    saved["inner"], device=device,
+                    like=like["inner"] if like is not None else None)}
 
     # -- the async carry --------------------------------------------------
     @staticmethod

@@ -21,6 +21,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.ckpt.keys import decode_generators, encode_generators
 from repro_torch.core import flatten
 
 __all__ = ["AggregationStrategy", "ExecutionContext"]
@@ -70,14 +71,19 @@ class AggregationStrategy:
         return ()
 
     def checkpoint_state(self, state: State) -> Any:
-        """Checkpointable form of the carried state: the state as it is."""
-        return state
+        """Checkpointable form of the carried state: the state with every
+        ``torch.Generator`` (a codec's) exchanged for a tagged dict of its
+        device and state bytes; the tensors as they are."""
+        return encode_generators(state)
 
-    def restore_state(self, saved: Any, *, device=None) -> State:
+    def restore_state(self, saved: Any, *, device=None, like: Any = None) -> State:
         """Inverse of :meth:`checkpoint_state`: array leaves back to tensors
-        on ``device``; generators as they are."""
-        return tree.map(lambda x: x if isinstance(x, torch.Generator)
-                        else torch.as_tensor(x, device=device), saved)
+        on ``device``; each saved generator state written into the
+        generator at the same place of ``like`` (the trainer's current
+        state) where there is one, else into a new one on ``device``.
+        Keeping the generator objects keeps a captured round's graph, which
+        registered them."""
+        return decode_generators(saved, like, device)
 
     def calibrate(self, model, A) -> "AggregationStrategy":
         """Hook for host-side calibration against the link statistics;

@@ -25,7 +25,11 @@ too), async with no_trace as well; the captured async round launches
 kernel 1 (monolithic), kernel 2 (segmented) or kernel 8 (clustered) once.
 An adaptive mobility run's chunks are bitwise its per-round run with the
 re-optimized alphas swapped in, from one capture; so are the multihop,
-topk and randk rounds (randk's generator too).
+topk and randk rounds (randk's generator too).  Telemetry on is bitwise
+telemetry off per round and replayed, with the vectors and the int32 streak
+bitwise between the two; a resumed run (memory, int8 quantized, no_trace)
+is bitwise the uninterrupted one, and so is a restore into a trainer whose
+round is captured, without a new capture.
 """
 
 import pytest
@@ -1206,3 +1210,135 @@ def test_sparse_and_multihop_graphed_chunk_equals_per_round(deterministic, path,
     stats = b.trainer._scan_fn.stats
     assert b.trainer._scan_fn.graph is not None and stats["replays"] == 6
     assert stats["captured_launches"] == {}  # plain PyTorch paths, as in the reference
+
+
+# -- telemetry and checkpoint/resume on the card -----------------------------------
+#
+# The instrumented round only reads the plain round's inputs and outputs, so
+# telemetry on is bitwise telemetry off, per round and replayed; a resumed run
+# is bitwise the uninterrupted one; a restore into a trainer whose round is
+# captured writes the generators' states into the objects the graph
+# registered, and the replays honour them without a new capture.
+
+
+def _end(trainer):
+    """A trainer's end state, copied (the carry is the engine's static
+    buffers, which a later chunk overwrites)."""
+    from repro_torch import tree
+    from repro_torch.telemetry import VECTOR_METRICS
+
+    leaves = tree.leaves((trainer.params, trainer.server_state, trainer.agg_state,
+                          trainer._streak, trainer._channel_state, trainer._channel_gen))
+    return dict(log=trainer.log.to_dict(),
+                metrics={k: list(v) for k, v in trainer.round_metrics.items()},
+                vectors={k: trainer.metrics.vector(k) for k in VECTOR_METRICS},
+                state=[x.get_state() if isinstance(x, torch.Generator) else x.clone()
+                       for x in leaves if x is not None])
+
+
+def _assert_same_end(a, b):
+    import numpy as np
+
+    assert a["log"].keys() == b["log"].keys() and a["metrics"].keys() == b["metrics"].keys()
+    for k in a["log"]:
+        assert all(u == v or (u != u and v != v) for u, v in zip(a["log"][k], b["log"][k])), k
+        assert len(a["log"][k]) == len(b["log"][k]), k
+    for k in a["metrics"]:
+        np.testing.assert_array_equal(a["metrics"][k], b["metrics"][k], err_msg=k)
+    for k, v in a["vectors"].items():
+        assert (v is None) == (b["vectors"][k] is None), k
+        if v is not None:
+            assert v.dtype == b["vectors"][k].dtype
+            np.testing.assert_array_equal(v, b["vectors"][k], err_msg=k)
+    assert len(a["state"]) == len(b["state"])
+    for x, y in zip(a["state"], b["state"]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("model", ["quadratic", "cifar_cnn"])
+@pytest.mark.parametrize("path", ["colrel kernel", "memory kernel", "quantized kernel"])
+def test_telemetry_is_inert_per_round_and_replayed(deterministic, path, model):
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+    from repro_torch.telemetry import VECTOR_METRICS
+
+    small = dict(local_steps=2, data_size=640, eval_size=64, batch_size=8)
+    spec = ExperimentSpec(model=model, **ENGINE_PATHS[path],
+                          **(small if model == "cifar_cnn" else {}))
+    off, on, on_ch = (build_experiment(s) for s in (spec, spec.replace(telemetry=True),
+                                                    spec.replace(telemetry=True)))
+    off.run(6)
+    on.run(6)
+    on_ch.run(6, chunk=3)
+    _assert_trainers_equal(off.trainer, on.trainer)
+    _assert_same_end(_end(on.trainer), _end(on_ch.trainer))
+    streak = on_ch.trainer._streak
+    assert streak.is_cuda and streak.dtype == torch.int32
+    assert on_ch.trainer.metrics.vector("outage_streak").dtype.name == "int32"
+    assert set(on_ch.trainer.round_metrics) == set(off.trainer.round_metrics) | {"weight_drift"}
+    assert all(on_ch.trainer.metrics.vector(k).shape == (6, 10) for k in VECTOR_METRICS)
+    stats = on_ch.trainer._scan_fn.stats
+    assert stats["captures"] == 1 and stats["replays"] == 6
+
+
+RESUME_PATHS = {
+    "memory kernel": (ENGINE_PATHS["memory kernel"], {}),
+    "quantized kernel": (ENGINE_PATHS["quantized kernel"], {}),
+    "colrel kernel, no_trace": (dict(ENGINE_PATHS["colrel kernel"], channel="markov"),
+                                {"no_trace": True}),
+}
+
+
+@pytest.mark.parametrize("model", ["quadratic", "cifar_cnn"])
+@pytest.mark.parametrize("path", sorted(RESUME_PATHS))
+def test_resume_and_restore_into_a_captured_trainer_are_bitwise(deterministic, path, model,
+                                                                 tmp_path):
+    """8 rounds in chunks of 4 with a checkpoint every chunk and telemetry:
+    a fresh trainer resumed at round 4 ends bitwise the uninterrupted run;
+    so does the uninterrupted trainer, which has captured, restored at round
+    4: the generators (the int8 codec's, the sampler's) keep their objects,
+    so the graph is kept (no new capture) and its replays read the restored
+    states."""
+    from repro_torch.ckpt import CheckpointWriter
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+
+    kw, run_kw = RESUME_PATHS[path]
+    small = dict(local_steps=2, data_size=640, eval_size=64, batch_size=8)
+    spec = ExperimentSpec(model=model, telemetry=True, **kw,
+                          **(small if model == "cifar_cnn" else {}))
+    ref = build_experiment(spec.replace(ckpt_dir=str(tmp_path), ckpt_every=4))
+    ref.run(8, chunk=4, **run_kw)
+    want = _end(ref.trainer)
+    mid = CheckpointWriter(tmp_path).path_for(4)
+    assert CheckpointWriter(tmp_path).steps() == [4, 8]
+    res = build_experiment(spec.replace(resume_from=str(mid)))
+    res.run(8, chunk=4, **run_kw)
+    _assert_same_end(want, _end(res.trainer))
+    engine = "_sampled_scan_fn" if run_kw else "_scan_fn"
+    assert getattr(res.trainer, engine).stats["captures"] == 1
+    scan = getattr(ref.trainer, engine)
+    graph = scan.graph
+    ref.run(8, chunk=4, resume_from=str(mid), **run_kw)
+    _assert_same_end(want, _end(ref.trainer))
+    assert scan.stats["captures"] == 1 and scan.graph is graph
+
+
+def test_experiment_fields_run_on_the_card(dev, tmp_path):
+    """metrics_dir, profile_dir, ckpt_* and resume_from through
+    build_experiment's default device."""
+    import json
+
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+
+    spec = ExperimentSpec(model="quadratic", rounds=4, chunk=2, metrics_dir=str(tmp_path / "m"),
+                          profile_dir=str(tmp_path / "p"), profile_rounds=2, log_every=2,
+                          ckpt_dir=str(tmp_path / "c"), ckpt_every=2)
+    exp = build_experiment(spec)
+    exp.run()
+    exp.close()
+    assert exp.trainer.device.type == "cuda" and exp.trainer._streak.is_cuda
+    man = json.loads((tmp_path / "m" / "manifest.json").read_text())
+    assert man["backend"] == "cuda" and man["extra"]["gpu"] == torch.cuda.get_device_name(0)
+    assert json.loads(exp.trainer.profile.trace_path.read_text())["traceEvents"]
+    again = build_experiment(spec.replace(resume_from=str(tmp_path / "c"), rounds=6))
+    again.run()
+    assert again.trainer.round == 6 and again.log.rounds == list(range(6))

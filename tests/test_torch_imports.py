@@ -48,7 +48,11 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.launch", "repro_torch.launch.steps", "repro_torch.launch.serve",
             "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
             "repro_torch.models.ssm", "repro_torch.models.mamba", "repro_torch.models.hybrid",
-            "repro_torch.configs.jamba_1_5_large_398b"} <= set(modules)
+            "repro_torch.configs.jamba_1_5_large_398b", "repro_torch.telemetry.device",
+            "repro_torch.telemetry.logger", "repro_torch.telemetry.manifest",
+            "repro_torch.telemetry.timing", "repro_torch.ckpt.schema", "repro_torch.ckpt.writer",
+            "repro_torch.ckpt.keys", "repro_torch.ckpt.preemption",
+            "repro_torch.checkpoint.io"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")

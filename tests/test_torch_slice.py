@@ -121,12 +121,26 @@ def test_quantized_identity_tracks_reference(reference, model):
     _check_tracks(reference, model, "quantized", {"codec": "identity"}, 0)
 
 
-def test_unported_options_raise():
-    for kw in (dict(ckpt_every=5), dict(telemetry=True), dict(metrics_dir="m"),
-               dict(profile_dir="p"), dict(profile_start=1), dict(log_every=1),
-               dict(ckpt_dir="c"), dict(resume_from="c")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_experiment(ExperimentSpec(model="quadratic", **kw), device="cpu")
+def test_unported_options_raise(tmp_path):
+    """The telemetry and checkpointing fields, refused until ROADMAP items 14
+    and 15 were ported, now build and run 4 rounds on the CPU (each has its
+    own tests in ``test_torch_telemetry.py`` and ``test_torch_resume.py``);
+    ``resume_from`` restores the round-4 checkpoint and trains to a target
+    of 6.  What still raises is a value the reference refuses too."""
+    ck = str(tmp_path / "c")
+    for kw in (dict(ckpt_every=2, ckpt_dir=ck), dict(telemetry=True),
+               dict(metrics_dir=str(tmp_path / "m")), dict(profile_dir=str(tmp_path / "p")),
+               dict(profile_start=1, profile_dir=str(tmp_path / "p1")), dict(log_every=1),
+               dict(ckpt_dir=ck, ckpt_keep=1), dict(resume_from=ck, rounds=6)):
+        exp = build_experiment(ExperimentSpec(**{"model": "quadratic", "rounds": 4, **kw}),
+                               device="cpu")
+        exp.run()
+        exp.close()
+        end = exp.spec.rounds
+        assert exp.trainer.round == end and exp.log.rounds == list(range(end))
+    with pytest.raises(ValueError, match="rounds >= 1"):
+        build_experiment(ExperimentSpec(model="quadratic", profile_dir=str(tmp_path / "p"),
+                                        profile_rounds=0), device="cpu")
 
 
 def test_experiment_spec_fields_match_reference():
