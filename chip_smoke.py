@@ -150,7 +150,21 @@ each of which fails the run by raising:
    plain path, and the served prompt's prefill against its replay;
 10. kernel 11 (the chunked SSD recurrence) timed at the prefill shape
    beside its bound and its plain version, on contiguous operands and on
-   the Mamba mixer's views, which are also held to the plain version.
+   the Mamba mixer's views, which are also held to the plain version;
+11. serving the rest of the model zoo (see ZOO): olmo-1b, qwen3-0.6b,
+   gemma3-1b, internvl2-2b, granite-moe-3b-a800m and rwkv6-1.6b at full
+   width and full depth in bf16 (the port's own init from a seed, each
+   model's params freed before the next): the prefill step on 4 requests
+   of 1024 tokens (internvl2 with 1024 synthetic patches in front), no
+   hand-written kernel launched (counted), its time and peak memory, a
+   MoE's dropped assignments; the serving CLI's path on 4 requests
+   (32-token prompt replayed, 16 greedy tokens); then in f32 at depth 2
+   (full width) the prefill against the prompt replayed through the serve
+   step (64 tokens, gemma3 640, past its window) at atol = rtol = 2e-2,
+   with 0 dropped assignments required; then jamba at one period with 4
+   of its 16 experts: the prefill on 1 x 1024 (1 flash_attention and 7
+   ssd_scan launches, counted), its peak memory, 8 decode steps, and the
+   f32 check on the period's first two layers (attention, Mamba + MoE).
 
 Phase 3 also holds kernel 10 against its plain version at (BH, T, D) in
 {(2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64)}, f32 and
@@ -167,6 +181,7 @@ The line before the last is a JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import ctypes
 import json
 import math
@@ -287,6 +302,32 @@ JB_B, JB_T = 4, 4096
 SSD_PREFILL_SHAPE = (JB_B * 256, JB_T, 16, 64)
 JB_SV_P, JB_SV_G = 128, 32
 JB_F32_T = 1024
+# Phase 11: the rest of the zoo at full width and full depth in bf16 (the
+# port's own init from a seed), each model's params freed before the next
+# one's are drawn.  The prefill cut from prefill_32k's 32 x 32768 to
+# ZOO_B x ZOO_T (gemma3's 512-token window is passed); the serving CLI's
+# path on ZOO_B requests, a ZOO_SV_P-token prompt replayed through the
+# serve step, then ZOO_SV_G greedy tokens.
+ZOO = ("olmo-1b", "qwen3-0.6b", "gemma3-1b", "internvl2-2b", "granite-moe-3b-a800m",
+       "rwkv6-1.6b")
+ZOO_B, ZOO_T = 4, 1024
+ZOO_SV_P, ZOO_SV_G = 32, 16
+# jamba with its experts: one period (depth 72 -> 8) and 16 -> 4 experts
+# (top-2 kept), ~16 B params, ~32 GB in bf16; the prefill on 1 x JE_T
+# tokens, then JE_STEPS decode steps
+JE_T, JE_STEPS = 1024, 8
+# Prefill against the prompt replayed through the serve step, in f32 at
+# full width cut to its first ZOO_CMP_DEPTH layers (jamba: the period's
+# first two, attention + dense MLP and Mamba + MoE), ZOO_B requests of
+# ZOO_CMP_P tokens (gemma3: past its window, so that decode masks it too);
+# atol = rtol = ZOO_CMP_TOL, tests/test_decode_consistency.py's bar for the
+# reference.  A MoE's prefill and its decode steps see other capacities,
+# so they agree only when no assignment is dropped: every dropped count
+# there must be 0.
+ZOO_CMP_DEPTH = 2
+ZOO_CMP_P = {"gemma3-1b": 640}
+ZOO_CMP_P_DEFAULT = 64
+ZOO_CMP_TOL = 2e-2
 # Kernels 3 and 7 at their timed shapes (phase 5; tools/kernel_times.py):
 # relay_mix at the kernel benchmark's n=16, d=2^20 f32, block_relay_mix on
 # the clustered cifar_cnn_full stack (C=2 x m=5, d=D_FULL); the timed calls
@@ -334,6 +375,41 @@ def bound_ms(n_bytes, flops, flops_per_s=F32_FLOPS):
 def rel_l2(a, b):
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
+
+
+def run_counted(wrappers, label, fn, expect):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; ``expect`` names the kernels it must have launched.  Returns
+    ``(fn(), seconds, launches)``."""
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    check(launched == expect, f"{label}: launches {launched}, expected {expect}")
+    return out, secs, launched
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """The number of assignments each ``apply_moe`` call drops, from the
+    call's own routing (``moe.route`` on the same input), in call order."""
+    from repro_torch.models import moe
+
+    real, counts = moe.apply_moe, []
+
+    def counting(cfg, params, x):
+        counts.append(int((~moe.route(cfg, params, x.reshape(-1, x.shape[-1])).keep).sum()))
+        return real(cfg, params, x)
+
+    moe.apply_moe = counting
+    try:
+        yield counts
+    finally:
+        moe.apply_moe = real
 
 
 def mix_bytes(C, m, d, masks):
@@ -2162,18 +2238,7 @@ def main():
     batch = {"prefix": frames, "tokens": tokens}
 
     def counted(label, fn, expect):
-        """``fn()`` with every launch count set to 0 just before and read
-        just after; ``expect`` names the kernels it must have launched."""
-        for w in wrappers.values():
-            w.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
-        check(launched == expect, f"{label}: launches {launched}, expected {expect}")
-        return out, secs, launched
+        return run_counted(wrappers, label, fn, expect)
 
     def cut(params, depth):
         return {k: (tree.map(lambda x: x[:depth], v) if k in ("encoder", "decoder") else v)
@@ -2574,6 +2639,11 @@ def main():
           f"mixer's views (q, k broadcast over {H_} heads, v and y in (B, T, H, P) storage) "
           f"{views_ms:.4f} ms ({ssd_nbytes / views_ms / 1e9:.3f} TB/s) [{card}]")
 
+    # -- 11. the rest of the model zoo, served ---------------------------------
+    del jparams
+    torch.cuda.empty_cache()
+    serve_zoo(dev, card, wrappers)
+
     print(f"[smoke] the script's wall, the build included: {time.perf_counter() - t_main:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -2581,6 +2651,172 @@ def main():
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_zoo(dev, card, wrappers):
+    """Phase 11: the dense, MoE, RWKV6 and VLM language models and jamba
+    with its experts, served at full width (see ZOO, JE_T, ZOO_CMP_*)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import build as build_model
+    from repro_torch.models import count_params
+
+    t11 = time.perf_counter()
+
+    def counted(label, fn, expect):
+        return run_counted(wrappers, label, fn, expect)
+
+    def finite_logits(label, logits, cfg, rows):
+        check(tuple(logits.shape) == (rows, cfg.vocab_size) and logits.dtype == cfg.tdtype
+              and bool(torch.isfinite(logits.float()).all()),
+              f"{label}: logits {tuple(logits.shape)} {logits.dtype}, expected finite "
+              f"{cfg.dtype} ({rows}, {cfg.vocab_size})")
+
+    def consistency(label, cfg, params, expect):
+        """The f32 prefill step against the same prompt replayed through the
+        serve step, with the MoE layers' dropped assignments counted."""
+        P = ZOO_CMP_P.get(cfg.name, ZOO_CMP_P_DEFAULT)
+        with moe_drops() as drops:
+            res, _, _ = counted(f"{label} f32 serve", lambda: serve(
+                cfg=cfg, batch=ZOO_B, prompt_len=P, gen=1, device=dev, params=params,
+                log=None), expect)
+        pre, rep = res.prefill_logits, res.replay_logits
+        err = (rep - pre).abs()
+        ok = bool(torch.all(err <= ZOO_CMP_TOL + ZOO_CMP_TOL * pre.abs()))
+        moe_note = ""
+        if cfg.n_experts:
+            moe_note = (f"; dropped assignments {sum(drops)} over {len(drops)} MoE calls "
+                        f"(the prefill's and {P} serve steps')")
+            check(sum(drops) == 0, f"{label}: {sum(drops)} assignments dropped where the "
+                  "prefill is compared with the replay")
+        check(ok, f"{label}: f32 prefill vs replay at depth {ZOO_CMP_DEPTH}: max abs "
+              f"{float(err.max())}")
+        print(f"[zoo] {label} decode consistency in f32 at depth {ZOO_CMP_DEPTH} (full width), "
+              f"{ZOO_B} x {P}-token prompt: replayed serve step vs prefill step last logits "
+              f"max abs {float(err.max()):.3e}, relative L2 {rel_l2(rep, pre):.3e} "
+              f"(atol = rtol = {ZOO_CMP_TOL}){moe_note} [{card}]")
+
+    with torch.inference_mode():
+        for arch in ZOO:
+            cfg = get_arch(arch).full()
+            bundle = build_model(cfg)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            t = time.perf_counter()
+            params = bundle.init(gen)
+            torch.cuda.synchronize()
+            n_params = count_params(params)
+            print(f"[zoo] {arch} full() [{cfg.arch_type}]: {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads} kv "
+                  f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+                  f"{f', {cfg.n_experts} experts top-{cfg.top_k}' if cfg.n_experts else ''}, "
+                  f"{cfg.dtype}: {n_params:,} params ({2 * n_params / 1e9:.2f} GB) drawn in "
+                  f"{time.perf_counter() - t:.2f} s [{card}]")
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (ZOO_B, ZOO_T), generator=gen,
+                                             device=dev)}
+            if cfg.arch_type == "vlm":
+                batch["prefix"] = torch.randn((ZOO_B, cfg.frontend_tokens, cfg.d_model),
+                                              generator=gen, device=dev)
+            prefill = build_step(bundle, "prefill")
+            pf_s = []
+            for _ in range(2):  # the first call also sets up cuBLAS
+                held_gb = torch.cuda.memory_allocated() / 1e9
+                torch.cuda.reset_peak_memory_stats()
+                logits, secs, _ = counted(f"{arch} prefill", lambda: prefill(params, batch), {})
+                pf_s.append(secs)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            finite_logits(f"{arch} prefill", logits, cfg, ZOO_B)
+            drop_note = ""
+            if cfg.n_experts:
+                with moe_drops() as drops:
+                    prefill(params, batch)
+                drop_note = (f", dropped assignments {sum(drops)} of "
+                             f"{len(drops) * ZOO_B * ZOO_T * cfg.top_k} over {len(drops)} layers")
+            prefix = (f" + {cfg.frontend_tokens} patches" if "prefix" in batch else "")
+            print(f"[zoo] {arch} prefill step, {ZOO_B} requests x {ZOO_T} tokens{prefix}: "
+                  f"{1e3 * pf_s[1]:.1f} ms (first call {1e3 * pf_s[0]:.1f} ms), no kernel "
+                  f"launched, peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated; "
+                  f"{held_gb:.2f} GB allocated before the call){drop_note} [{card}]")
+            del logits
+            res, _, _ = counted(f"{arch} serve", lambda: serve(
+                cfg=cfg, batch=ZOO_B, prompt_len=ZOO_SV_P, gen=ZOO_SV_G, device=dev,
+                params=params, log=lambda line: print(f"[serve] {line} [{card}]")), {})
+            check(tuple(res.tokens.shape) == (ZOO_B, ZOO_SV_G) and int(res.tokens.min()) >= 0
+                  and int(res.tokens.max()) < cfg.vocab_size, f"{arch} served tokens "
+                  f"{tuple(res.tokens.shape)}")
+            finite_logits(f"{arch} serve prefill", res.prefill_logits, cfg, ZOO_B)
+            finite_logits(f"{arch} serve replay", res.replay_logits, cfg, ZOO_B)
+            print(f"[zoo] {arch} serving {ZOO_B} requests, {ZOO_SV_P}-token prompt replayed "
+                  f"through the serve step, {ZOO_SV_G} greedy tokens: prefill "
+                  f"{1e3 * res.prefill_s:.2f} ms, replay {1e3 * res.replay_s:.2f} ms, decode "
+                  f"{res.decode_ms_per_step:.3f} ms/step, {res.tokens_per_s:.1f} tok/s [{card}]")
+            # the f32 check at a depth cut, on the same params; a VLM without
+            # its prefix (its decode step has none)
+            cut = cfg.replace(n_layers=ZOO_CMP_DEPTH, dtype="float32",
+                              frontend_tokens=0 if cfg.arch_type == "vlm" else cfg.frontend_tokens)
+            p32 = {k: tree.map(lambda x: (x[:ZOO_CMP_DEPTH] if k == "layers" else x).float(), v)
+                   for k, v in params.items()}
+            del params, res
+            consistency(arch, cut, p32, {})
+            del p32, bundle
+            torch.cuda.empty_cache()
+
+        # jamba with its experts: one period, 4 experts
+        je_cfg = get_arch(JAMBA).full().replace(n_layers=8, n_experts=4)
+        je_bundle = build_model(je_cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t = time.perf_counter()
+        jparams = je_bundle.init(gen)
+        torch.cuda.synchronize()
+        n_params = count_params(jparams)
+        print(f"[zoo] {JAMBA} full() at one period with {je_cfg.n_experts} experts (top-"
+              f"{je_cfg.top_k}, a MoE MLP at positions 1, 3, 5, 7): {n_params:,} params "
+              f"({2 * n_params / 1e9:.2f} GB) drawn in {time.perf_counter() - t:.2f} s [{card}]")
+        expect = {"flash_attention": 1, "ssd_scan": je_cfg.attn_every - 1}
+        tokens = torch.randint(0, je_cfg.vocab_size, (1, JE_T), generator=gen, device=dev)
+        prefill = build_step(je_bundle, "prefill")
+        pf_s = []
+        for _ in range(2):
+            held_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            logits, secs, launched = counted("jamba with experts prefill", lambda: prefill(
+                jparams, {"tokens": tokens}), expect)
+            pf_s.append(secs)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finite_logits("jamba with experts prefill", logits, je_cfg, 1)
+        with moe_drops() as drops:
+            prefill(jparams, {"tokens": tokens})
+        print(f"[zoo] jamba with experts prefill step, 1 request x {JE_T} tokens: "
+              f"{1e3 * pf_s[1]:.1f} ms (first call {1e3 * pf_s[0]:.1f} ms), launches "
+              f"{launched}, peak memory {peak_gb:.2f} GB ({held_gb:.2f} GB allocated before the "
+              f"call), dropped assignments {sum(drops)} of "
+              f"{len(drops) * JE_T * je_cfg.top_k} over {len(drops)} MoE layers [{card}]")
+        step = build_step(je_bundle, "decode")
+        cache = je_bundle.init_cache(1, JE_STEPS, device=dev)
+        step_s = []
+        for t_ in range(JE_STEPS):
+            (last, cache), secs, _ = counted("jamba with experts decode step", lambda: step(
+                jparams, cache, tokens[:, t_:t_ + 1], t_), {})
+            step_s.append(secs)
+        finite_logits("jamba with experts decode", last, je_cfg, 1)
+        print(f"[zoo] jamba with experts, {JE_STEPS} decode steps (1 request): "
+              f"{1e3 * statistics.median(step_s[1:]):.3f} ms/step (median of steps 2-"
+              f"{JE_STEPS}; first {1e3 * step_s[0]:.3f} ms), "
+              f"{1 / statistics.median(step_s[1:]):.1f} tok/s [{card}]")
+        del logits, last, cache
+        # the f32 check on the period's first two layers (attention + dense
+        # MLP, Mamba + MoE): a period of two with the same pattern
+        cut = je_cfg.replace(n_layers=ZOO_CMP_DEPTH, attn_every=ZOO_CMP_DEPTH, dtype="float32")
+        p32 = {k: (tree.map(lambda x: x.float(), v) if k != "periods" else
+                   {part: {f"l{j}": tree.map(lambda x: x.float(), v[part][f"l{j}"])
+                           for j in range(ZOO_CMP_DEPTH)} for part in v})
+               for k, v in jparams.items()}
+        del jparams
+        consistency("jamba with experts", cut, p32, {"flash_attention": 1, "ssd_scan": 1})
+        del p32, je_bundle
+    torch.cuda.empty_cache()
+    print(f"[zoo] phase 11 wall {time.perf_counter() - t11:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

@@ -3,10 +3,7 @@
 The counterpart of ``repro.configs.base``: the same arch ids, CLI aliases
 and input shapes.  Each ported arch module defines ``full()`` (the
 assigned configuration), ``smoke()`` (a reduced same-family variant) and
-``SHAPES``.  seamless-m4t-large-v2 and jamba-1.5-large-398b are ported
-(jamba's MoE MLPs are not: its ``full()`` builds only with
-``moe_every=0``); :func:`get_arch` of another known arch raises
-:class:`NotImplementedError` naming its ROADMAP item.
+``SHAPES``.  All ten architectures are ported.
 """
 
 from __future__ import annotations
@@ -15,7 +12,7 @@ import dataclasses
 import importlib
 from typing import Dict, List
 
-__all__ = ["ARCH_IDS", "CLI_ALIASES", "PORTED", "InputShape", "INPUT_SHAPES", "get_arch",
+__all__ = ["ARCH_IDS", "CLI_ALIASES", "InputShape", "INPUT_SHAPES", "get_arch",
            "supported_shapes"]
 
 ARCH_IDS: List[str] = [
@@ -45,9 +42,6 @@ CLI_ALIASES: Dict[str, str] = {
     "gemma3-1b": "gemma3_1b",
 }
 
-# arch modules the port has
-PORTED = ("seamless_m4t_large_v2", "jamba_1_5_large_398b")
-
 
 @dataclasses.dataclass(frozen=True)
 class InputShape:
@@ -70,10 +64,6 @@ def get_arch(arch_id: str):
     mod = CLI_ALIASES.get(arch_id, arch_id).replace("-", "_").replace(".", "_")
     if mod not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(CLI_ALIASES)}")
-    if mod not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet: ROADMAP.md queue 1, item 17 "
-            f"(the model zoo); ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -6,9 +6,9 @@ layers, d_model 8192, 64 heads (GQA kv 8) of 128, d_ff 24576, vocab
 [attn, 7x mamba]), a MoE MLP every other layer; Mamba d_inner 16,384 as
 256 SSM heads of 64, d_state 16, conv 4, chunk 64.
 
-The port serves it without experts: ``full().replace(moe_every=0)`` gives
-every layer the config's dense SwiGLU MLP.  A config with MoE positions
-raises until ``models/moe.py`` is ported (ROADMAP.md queue 1, item 17).
+``replace(moe_every=0)`` gives every layer the config's dense SwiGLU
+MLP.  One period with its experts holds ~45 B params (~90 GB in bf16);
+``full().replace(n_layers=8, n_experts=4)`` holds ~16 B.
 """
 
 from repro_torch.models.common import ModelConfig

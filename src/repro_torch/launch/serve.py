@@ -1,25 +1,30 @@
 """Batched serving of a model of the zoo: prefill, then greedy decode
-against the KV cache (and, for the hybrid, the Mamba states).
+against the KV cache (the hybrid's also holds the Mamba states; RWKV6's
+holds its shift and wkv states instead).
 
-    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+    python -m repro_torch.launch.serve --arch <id> \\
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 32] [--device cuda]
 
-The counterpart of ``examples/serve_decode.py``: random weights and
-prompts, all from ``--seed``; an encoder-decoder (seamless-m4t) also gets
-synthetic frame embeddings ``(B, frames, d_model)``, a decoder-only model
-(the jamba hybrid, given as ``cfg=``) prompts only.  It times
+``<id>`` is any of the ten architectures of
+:data:`repro_torch.configs.base.CLI_ALIASES`.  The counterpart of
+``examples/serve_decode.py``: random weights and prompts, all from
+``--seed``.  An encoder-decoder (seamless-m4t) also gets synthetic frame
+embeddings ``(B, frames, d_model)``, a VLM (internvl2) synthetic patch
+embeddings ``(B, patches, d_model)`` in front of its prompt, but only in
+the prefill: the decode step has no prefix, as in the reference, so the
+cache replay and the decode see the text alone.  Every other model gets
+prompts only.  It times
 
-* the prefill step (last-position logits of the prompt, through the
-  hand-written kernels: flash attention, and ``ssd_scan`` for Mamba);
+* the prefill step (last-position logits of the prompt; an
+  encoder-decoder's and a hybrid's through the hand-written kernels: flash
+  attention, and ``ssd_scan`` for Mamba);
 * filling the cache by replaying the prompt through the serve step, as the
   reference does (no prefill there writes a cache);
 * greedy generation of ``--gen`` tokens, the first from the replay's last
   logits and each further one from one serve step.
 
-Runs on CUDA unless ``--device`` names another device.
-``--arch jamba-1.5-large-398b`` resolves the reference's config, whose MoE
-MLPs are not ported: it raises :class:`NotImplementedError`; serve
-``full().replace(moe_every=0)`` through ``serve(cfg=...)``.
+Runs on CUDA unless ``--device`` names another device.  A config of
+one's own (say, a depth cut) goes through ``serve(cfg=...)``.
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ __all__ = ["ServeResult", "serve", "main"]
 
 @dataclasses.dataclass
 class ServeResult:
-    frames: Optional[torch.Tensor]  # (B, frames, d_model); None for a decoder-only model
+    # the prefill's frontend embeddings: an encoder-decoder's frames or a
+    # VLM's patches (B, frontend_tokens, d_model); None for the others
+    frames: Optional[torch.Tensor]
     prompts: torch.Tensor  # (B, prompt_len) prompt tokens
     prefill_logits: torch.Tensor  # (B, V) from the prefill step
     replay_logits: torch.Tensor  # (B, V) from the last replayed prompt token
@@ -84,15 +91,17 @@ def serve(arch: str = "seamless-m4t-large-v2", *, cfg: Optional[ModelConfig] = N
         params = bundle.init(g)
     B, P, G = batch, prompt_len, gen
     encoder = cfg.arch_type in ("encdec", "audio")
-    F = cfg.frontend_tokens if encoder else 0
-    frames = torch.randn((B, F, cfg.d_model), generator=g, device=dev) if encoder else None
+    prefixed = encoder or (cfg.arch_type == "vlm" and cfg.frontend_tokens > 0)
+    F = cfg.frontend_tokens if prefixed else 0
+    what = "frames" if encoder else "patches"
+    frames = torch.randn((B, F, cfg.d_model), generator=g, device=dev) if prefixed else None
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
     if log:
         log(f"serving {cfg.name}{' (smoke)' if smoke else ''} on {dev}: "
             f"{count_params(params):,} params, {cfg.dtype}, batch {B}, prompt {P}, "
-            f"{f'{F} frames, ' if encoder else ''}gen {G}")
+            f"{f'{F} {what}, ' if prefixed else ''}gen {G}")
     prefill_step, serve_step = build_step(bundle, "prefill"), build_step(bundle, "decode")
-    batch_in = {"prefix": frames, "tokens": prompts} if encoder else {"tokens": prompts}
+    batch_in = {"tokens": prompts} if frames is None else {"prefix": frames, "tokens": prompts}
 
     with torch.inference_mode():
         _sync(dev)
@@ -127,7 +136,7 @@ def serve(arch: str = "seamless-m4t-large-v2", *, cfg: Optional[ModelConfig] = N
                       tokens=torch.cat(out, dim=1), prefill_s=prefill_s, replay_s=replay_s,
                       decode_s=decode_s, decode_steps=G - 1)
     if log:
-        log(f"prefill: {P} tokens x {B} seqs{f' + {F} frames' if encoder else ''} in "
+        log(f"prefill: {P} tokens x {B} seqs{f' + {F} {what}' if prefixed else ''} in "
             f"{1e3 * prefill_s:.2f} ms")
         log(f"cache replay: {P} serve steps in {1e3 * replay_s:.2f} ms")
         log(f"decode: {G - 1} steps in {1e3 * decode_s:.2f} ms "

@@ -4,14 +4,17 @@ The counterpart of the serving kinds of ``repro.launch.steps.build_step``
 (an input shape's ``kind``, see :data:`repro_torch.configs.base.INPUT_SHAPES`):
 
 * ``prefill`` -> ``prefill_step(params, batch)``: the last-position logits
-  ``(B, V)`` of the prompt, with causal self-attention through the
-  flash-attention kernel (and a hybrid's Mamba layers through
-  ``ssd_scan``);
+  ``(B, V)`` of the prompt, the forward run with ``use_flash=True``: an
+  encoder-decoder's and a hybrid's causal self-attention through the
+  flash-attention kernel, a hybrid's Mamba layers through ``ssd_scan``;
+  the decoder-only LMs take no kernel (every layer has a window, see
+  :mod:`repro_torch.models.transformer`);
 * ``decode`` -> ``serve_step(params, cache, token, pos)``: one-token
   decode against the KV cache, ``(logits (B, V), cache)``.
 
 No sharding: one device holds the params, the batch and the cache.  The
-``train`` kind (one FL round of a zoo model) is not ported.
+``train`` kind (one FL round of a zoo model) is not ported: ROADMAP.md
+queue 1, item 16.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def build_step(bundle: ModelBundle, kind: str) -> Callable:
     if kind == "train":
         raise NotImplementedError(
             "the train step of the model zoo is not ported to repro_torch yet: ROADMAP.md "
-            "queue 1, item 16 (launch/train.py), after item 17 (the model zoo)")
+            "queue 1, item 16 (launch/train.py)")
     if kind not in STEP_KINDS:
         raise ValueError(f"unknown step kind {kind!r}; known: {STEP_KINDS}")
     if bundle.forward is None or not bundle.has_decode:

@@ -1,7 +1,7 @@
-"""Models of the port: the paper's GroupNorm ResNet-20 CNN and, of the
-model zoo, the encoder-decoder (seamless-m4t) and the Mamba/attention
-hybrid (jamba, dense MLPs), behind the reference's :func:`build`
-interface."""
+"""Models of the port: the paper's GroupNorm ResNet-20 CNN and the model
+zoo (the encoder-decoder, the Mamba/attention hybrid with its MoE MLPs,
+and the dense, MoE, RWKV6 and VLM decoder-only LMs), behind the
+reference's :func:`build` interface."""
 
 from repro_torch.models.cnn import CNNConfig
 from repro_torch.models.common import ModelConfig, count_params

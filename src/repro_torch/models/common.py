@@ -33,6 +33,9 @@ __all__ = [
     "softmax_cross_entropy",
     "count_params",
     "stack_layers",
+    "layer_at",
+    "lm_head",
+    "masked_lm_loss",
 ]
 
 Params = Any  # nested dict of tensors
@@ -142,6 +145,16 @@ def stack_layers(layers: Sequence[Params]) -> Params:
     return tree.map(lambda *xs: torch.stack(xs), *layers)
 
 
+def layer_at(stacked: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked tree, as views (writes land in the stack)."""
+    return tree.map(lambda x: x[i], stacked)
+
+
+def lm_head(cfg: "ModelConfig", params: Params) -> torch.Tensor:
+    """The (d_model, V) output projection: the embedding's transpose when tied."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -217,6 +230,19 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
     return logz - gold
+
+
+def masked_lm_loss(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Mean cross-entropy of ``batch['labels']`` (B, T), negative labels
+    masked; with ``batch['ce_weight']`` (B,) the per-sequence means weighted
+    by it (the flat ColRel round: w_{client(seq)}/B)."""
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    ce = softmax_cross_entropy(logits, torch.clamp(labels, min=0))
+    if "ce_weight" in batch:
+        seq_loss = torch.sum(ce * mask, dim=-1) / torch.clamp(torch.sum(mask, -1), min=1.0)
+        return torch.sum(batch["ce_weight"].float() * seq_loss)
+    return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def count_params(params: Params) -> int:

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
@@ -27,7 +26,8 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     init_norm,
-    softmax_cross_entropy,
+    layer_at,
+    masked_lm_loss,
     stack_layers,
 )
 
@@ -68,10 +68,6 @@ def init_encdec(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
 
 
-def _layer(stacked: Params, i: int) -> Params:
-    return tree.map(lambda x: x[i], stacked)
-
-
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
            use_flash: bool = False) -> torch.Tensor:
     """frames (B, F, d) stub frontend embeddings -> encoder memory (B, F, d).
@@ -81,7 +77,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
     x = frames.to(cfg.tdtype) @ params["frontend_proj"]
     for i in range(cfg.n_encoder_layers):
         # (the reference's constrain_act sharding hint: a no-op on one device)
-        lp = _layer(params["encoder"], i)
+        lp = layer_at(params["encoder"], i)
         x = x + attn_mod.attention(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
                                    causal=False, use_flash=False)
         x = x + mlp_mod.apply_mlp(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
@@ -96,7 +92,7 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor, memory:
     x = params["embed"][tokens]
     for i in range(cfg.n_layers):
         # (the reference's constrain_act sharding hint: a no-op on one device)
-        lp = _layer(params["decoder"], i)
+        lp = layer_at(params["decoder"], i)
         x = x + attn_mod.attention(cfg, lp["self"], apply_norm(cfg, lp["ln1"], x),
                                    use_flash=use_flash)
         x = x + attn_mod.attention(cfg, lp["cross"], apply_norm(cfg, lp["ln_x"], x),
@@ -111,14 +107,7 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, use_flash: bool = 
     (negative labels are masked); optional per-sequence 'ce_weight'."""
     memory = encode(cfg, params, batch["prefix"], use_flash=use_flash)
     logits = decode_train(cfg, params, batch["tokens"], memory, use_flash=use_flash)
-    labels = batch["labels"]
-    mask = (labels >= 0).float()
-    ce = softmax_cross_entropy(logits, torch.clamp(labels, min=0))
-    if "ce_weight" in batch:
-        seq_loss = torch.sum(ce * mask, dim=-1) / torch.clamp(torch.sum(mask, -1), min=1.0)
-        loss = torch.sum(batch["ce_weight"].float() * seq_loss)
-    else:
-        loss = torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = masked_lm_loss(logits, batch)
     return loss, {"ce": loss, "moe_aux": torch.zeros((), device=loss.device)}
 
 
@@ -142,8 +131,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
     B = token.shape[0]
     qpos = torch.full((B, 1), int(pos), device=x.device)
     for i in range(cfg.n_layers):
-        lp = _layer(params["decoder"], i)
-        c = _layer(cache["kv"], i)  # views: the writes land in the stacked cache
+        lp = layer_at(params["decoder"], i)
+        c = layer_at(cache["kv"], i)  # views: the writes land in the stacked cache
         h, _ = attn_mod.decode_attention(cfg, lp["self"], apply_norm(cfg, lp["ln1"], x), c, pos)
         x = x + h
         x = x + attn_mod.attention(cfg, lp["cross"], apply_norm(cfg, lp["ln_x"], x),

@@ -9,11 +9,13 @@ The counterpart of ``repro.models.registry``: ``build(cfg)`` returns a
 * ``init_cache(batch, max_len, memory_len) -> cache`` and
   ``decode_step(params, cache, token, pos) -> (logits, cache)``.
 
-Ported: the paper's CNN (:class:`~repro_torch.models.cnn.CNNConfig`), the
-encoder-decoder (``arch_type`` ``encdec``/``audio``) and the hybrid
-without MoE MLPs (``hybrid`` with ``moe_every=0``; ``init_cache(batch,
-max_len, device=None)``).  The other families, and a hybrid with MoE
-positions, raise :class:`NotImplementedError` naming their ROADMAP item.
+Every family of the reference: the paper's CNN
+(:class:`~repro_torch.models.cnn.CNNConfig`), the encoder-decoder
+(``arch_type`` ``encdec``/``audio``), the Mamba/attention hybrid
+(``hybrid``, with or without MoE MLPs) and the generic decoder-only LM
+(``dense``, ``moe``, ``ssm`` (RWKV6) and ``vlm``).  The hybrid and the
+LM take ``init_cache(batch, max_len, device=None)``.  Another ``arch_type``
+raises :class:`ValueError`.
 """
 
 from __future__ import annotations
@@ -25,17 +27,13 @@ from typing import Any, Callable, Optional
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import transformer as tr_mod
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["ModelBundle", "build"]
 
-# arch_type -> what porting it takes (ROADMAP.md queue 1, item 17)
-_UNPORTED = {
-    "dense": "the dense/MoE LMs (models/transformer.py)",
-    "moe": "the dense/MoE LMs (models/transformer.py, moe.py)",
-    "ssm": "the dense/MoE LMs (models/transformer.py, rwkv.py)",
-    "vlm": "the dense/MoE LMs (models/transformer.py)",
-}
+# the families the generic decoder-only LM serves
+_LM_FAMILIES = ("dense", "moe", "ssm", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +77,7 @@ def build(cfg) -> ModelBundle:
             decode_step=partial(encdec_mod.decode_step, cfg),
         )
     if cfg.arch_type == "hybrid":
-        hybrid_mod.n_periods(cfg)  # raises for MoE positions and ragged periods
+        hybrid_mod.n_periods(cfg)  # raises for ragged periods
         return ModelBundle(
             cfg=cfg,
             init=partial(hybrid_mod.init_hybrid, cfg),
@@ -89,9 +87,14 @@ def build(cfg) -> ModelBundle:
             init_cache=partial(hybrid_mod.init_cache, cfg),
             decode_step=partial(hybrid_mod.decode_step, cfg),
         )
-    what = _UNPORTED.get(cfg.arch_type)
-    if what is None:
+    if cfg.arch_type not in _LM_FAMILIES:
         raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
-    raise NotImplementedError(
-        f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet: ROADMAP.md queue 1, "
-        f"item 17, {what}")
+    return ModelBundle(
+        cfg=cfg,
+        init=partial(tr_mod.init_lm, cfg),
+        loss_fn=partial(tr_mod.loss_fn, cfg),
+        forward=lambda params, batch, **kw: tr_mod.forward(
+            cfg, params, batch["tokens"], prefix_embeds=batch.get("prefix"), **kw)[0],
+        init_cache=partial(tr_mod.init_cache, cfg),
+        decode_step=partial(tr_mod.decode_step, cfg),
+    )

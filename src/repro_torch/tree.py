@@ -5,6 +5,11 @@ lists and tuples by index.  ``torch.utils._pytree`` keeps dict insertion
 order instead, which would lay the ``(n, d)`` update stack out in another
 column order than the reference package.  Anything that is not a dict,
 list or tuple is a leaf.
+
+The walks are module-level functions that take their output as an
+argument: a recursive nested function would sit in a reference cycle with
+its closure, and the list of leaves in that closure (a whole params tree)
+would outlive the call until the garbage collector's next full pass.
 """
 
 from __future__ import annotations
@@ -38,33 +43,33 @@ def _children(tree) -> Tuple[str, Tuple[Any, ...], List[Any]]:
     return "leaf", (), []
 
 
+def _flatten_into(node, out: List[Any]) -> TreeDef:
+    kind, keys, kids = _children(node)
+    if kind == "leaf":
+        out.append(node)
+        return _LEAF
+    return TreeDef(kind, keys, tuple([_flatten_into(k, out) for k in kids]))
+
+
 def flatten(tree) -> Tuple[List[Any], TreeDef]:
     """``(leaves, treedef)`` with leaves in ``jax.tree.flatten`` order."""
     out: List[Any] = []
+    return out, _flatten_into(tree, out)
 
-    def walk(node) -> TreeDef:
-        kind, keys, kids = _children(node)
-        if kind == "leaf":
-            out.append(node)
-            return _LEAF
-        return TreeDef(kind, keys, tuple(walk(k) for k in kids))
 
-    return out, walk(tree)
+def _build(td: TreeDef, it):
+    if td.kind == "leaf":
+        return next(it)
+    kids = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.keys, kids))
+    return kids if td.kind == "list" else tuple(kids)
 
 
 def unflatten(treedef: TreeDef, leaves_: List[Any]):
     """Inverse of :func:`flatten`."""
     it = iter(leaves_)
-
-    def build(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        kids = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.keys, kids))
-        return kids if td.kind == "list" else tuple(kids)
-
-    tree = build(treedef)
+    tree = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return tree
@@ -90,18 +95,18 @@ def paths(tree) -> List[str]:
     """Dotted key path of every leaf, in leaf order (``"stages.1.0.wproj"``);
     the names ``nn.Module.named_parameters`` gives the same leaves."""
     out: List[str] = []
-
-    def walk(node, prefix: str) -> None:
-        kind, keys, kids = _children(node)
-        if kind == "leaf":
-            out.append(prefix)
-            return
-        names = keys if kind == "dict" else range(len(kids))
-        for name, kid in zip(names, kids):
-            walk(kid, f"{prefix}.{name}" if prefix else str(name))
-
-    walk(tree, "")
+    _paths_into(tree, "", out)
     return out
+
+
+def _paths_into(node, prefix: str, out: List[str]) -> None:
+    kind, keys, kids = _children(node)
+    if kind == "leaf":
+        out.append(prefix)
+        return
+    names = keys if kind == "dict" else range(len(kids))
+    for name, kid in zip(names, kids):
+        _paths_into(kid, f"{prefix}.{name}" if prefix else str(name), out)
 
 
 def from_paths(named: Mapping[str, Any]):

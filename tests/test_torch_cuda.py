@@ -29,7 +29,12 @@ topk and randk rounds (randk's generator too).  Telemetry on is bitwise
 telemetry off per round and replayed, with the vectors and the int32 streak
 bitwise between the two; a resumed run (memory, int8 quantized, no_trace)
 is bitwise the uninterrupted one, and so is a restore into a trainer whose
-round is captured, without a new capture.
+round is captured, without a new capture.  Each family of the model zoo
+(dense, MoE, RWKV6, VLM, jamba with its experts) at its smoke config in
+f32 on the card is held to the port's CPU path on the same params at
+ZOO_TOL; ``apply_moe`` on the card gives the same bits twice, and breaks
+top-k ties toward the lower expert; RWKV6's decode states are each
+layer's own.
 """
 
 import pytest
@@ -1342,3 +1347,85 @@ def test_experiment_fields_run_on_the_card(dev, tmp_path):
     again = build_experiment(spec.replace(resume_from=str(tmp_path / "c"), rounds=6))
     again.run()
     assert again.trainer.round == 6 and again.log.rounds == list(range(6))
+
+
+# ---------------------------------------------------------------------------
+# the model zoo on the card
+# ---------------------------------------------------------------------------
+
+# f32 on both sides, cuBLAS against the CPU's GEMMs (TF32 off) and, for
+# jamba, kernels 10 and 11 against their plain versions; relative to
+# max(1, max|cpu|), through attention's nearly one-hot softmaxes
+ZOO_TOL = 1e-3
+
+
+def _zoo_close(got, want):
+    got, want = got.float().cpu(), want.float()
+    assert got.shape == want.shape
+    err = float((got - want).abs().max())
+    assert err <= ZOO_TOL * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-moe-3b-a800m", "rwkv6-1.6b",
+                                  "internvl2-2b", "jamba-1.5-large-398b"])
+def test_zoo_smoke_on_the_card_matches_the_cpu_path(dev, arch):
+    from repro_torch import tree
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import build
+
+    cfg = get_arch(arch).smoke()
+    b = build(cfg)
+    params = b.init(torch.Generator().manual_seed(0))
+    on_card = tree.map(lambda x: x.to(dev), params)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=g)}
+    if cfg.frontend_tokens:
+        batch["prefix"] = torch.randn(2, cfg.frontend_tokens, cfg.d_model, generator=g)
+    prefill = build_step(b, "prefill")
+    with torch.inference_mode():
+        _zoo_close(prefill(on_card, {k: v.to(dev) for k, v in batch.items()}),
+                   prefill(params, batch))
+        step = build_step(b, "decode")
+        cache, card_cache = b.init_cache(2, 8), b.init_cache(2, 8, device=dev)
+        for t in range(8):
+            tok = batch["tokens"][:, t:t + 1]
+            want, cache = step(params, cache, tok, t)
+            got, card_cache = step(on_card, card_cache, tok.to(dev), t)
+            _zoo_close(got, want)
+
+
+def test_apply_moe_on_the_card_is_deterministic_and_breaks_ties_low(dev):
+    """granite-moe's MoE layer at full width (40 experts, top-8), 4096
+    tokens in bf16: two calls give the same bits (the combine sums each
+    token's contributions in order; no atomics)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import moe
+
+    cfg = get_arch("granite-moe-3b-a800m").full()
+    p = moe.init_moe(cfg, torch.Generator(device=dev).manual_seed(0))
+    x = torch.randn(4, 1024, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)).to(cfg.tdtype)
+    y1, aux1 = moe.apply_moe(cfg, p, x)
+    y2, aux2 = moe.apply_moe(cfg, p, x)
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+    assert bool(torch.isfinite(y1.float()).all())
+    r = moe.route(cfg, {**p, "router": torch.zeros_like(p["router"])}, x[0, :8])
+    assert torch.equal(r.expert.cpu(), torch.arange(cfg.top_k).expand(8, cfg.top_k))
+
+
+def test_rwkv_decode_states_are_each_layers_own_on_the_card(dev):
+    from repro_torch import tree
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import build
+
+    cfg = get_arch("rwkv6-1.6b").smoke()
+    b = build(cfg)
+    params = b.init(torch.Generator(device=dev).manual_seed(0))
+    cache = b.init_cache(2, 4, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 1), device=dev)
+    _, out = b.decode_step(params, cache, tok, 0)
+    assert out is cache
+    for x in tree.leaves(cache):
+        assert x.is_cuda and x.shape[0] == cfg.n_layers
+        assert float(x[0].abs().max()) > 0 and not torch.equal(x[0], x[1])

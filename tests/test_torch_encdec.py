@@ -110,19 +110,28 @@ def test_configs_and_registry_match_reference():
     assert base.supported_shapes(ARCH) == jbase.supported_shapes(ARCH)
     full = mod.full()
     assert (full.hd, full.tdtype) == (64, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        base.get_arch("qwen3-0.6b")
+    # every arch id of the reference resolves, in either form; only an
+    # unknown one raises
+    for alias, name in base.CLI_ALIASES.items():
+        assert base.get_arch(alias) is base.get_arch(name)
+        assert base.get_arch(alias).__name__ == f"repro_torch.configs.{name}"
     with pytest.raises(KeyError):
         base.get_arch("gpt-5")
 
 
 def test_unported_families_and_the_train_step_raise():
+    """Every family builds (the zoo is ported); the train step (ROADMAP.md
+    item 16) and an unknown arch_type raise."""
     for arch_type in ("dense", "moe", "ssm", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            build(ModelConfig(arch_type=arch_type))
-    # the hybrid is ported without its MoE MLPs
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build(ModelConfig(arch_type="hybrid", n_layers=8, attn_every=8, moe_every=2))
+        b = build(ModelConfig(arch_type=arch_type, n_experts=4 if arch_type == "moe" else 0,
+                              top_k=2 if arch_type == "moe" else 0))
+        assert b.has_decode and b.forward is not None and b.init_cache is not None
+    b = build(ModelConfig(arch_type="hybrid", n_layers=8, attn_every=8, moe_every=2,
+                          n_experts=4, top_k=2))
+    assert sorted(b.init(torch.Generator().manual_seed(0))["periods"]["ffns"]["l1"]) == [
+        "router", "wd", "wg", "wu"]
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        build(ModelConfig(arch_type="diffusion"))
     with pytest.raises(NotImplementedError, match="item 16"):
         build_step(build(base.get_arch(ARCH).smoke()), "train")
 

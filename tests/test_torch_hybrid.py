@@ -91,13 +91,19 @@ def test_configs_match_reference():
 
 
 def test_moe_positions_raise_naming_the_roadmap_item():
+    """The MoE positions are ported: smoke() and full() build with a MoE
+    MLP at every odd position of the period (``tests/test_torch_zoo.py``
+    holds them to the reference); a ragged period still raises."""
     for cfg in (base.get_arch(ARCH).smoke(), base.get_arch(ARCH).full()):
-        with pytest.raises(NotImplementedError, match="item 17, step 2"):
-            build(cfg)
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        serve_mod.serve(ARCH, smoke=True, device="cpu", log=None)
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        serve_mod.main(["--arch", ARCH, "--smoke", "--device", "cpu"])
+        period, attn_pos, mamba_pos, moe_pos = hybrid._pattern(cfg)
+        assert moe_pos == list(range(1, period, 2)) and attn_pos == [0]
+        assert build(cfg).decode_step is not None
+    params = build(base.get_arch(ARCH).smoke()).init(torch.Generator().manual_seed(0))
+    E = base.get_arch(ARCH).smoke().n_experts
+    assert params["periods"]["ffns"]["l1"]["wg"].shape[1] == E  # (periods, E, d, f)
+    assert sorted(params["periods"]["ffns"]["l0"]) == ["wd", "wg", "wu"]
+    res = serve_mod.serve(ARCH, smoke=True, batch=1, prompt_len=16, gen=2, device="cpu", log=None)
+    assert res.tokens.shape == (1, 2)
     with pytest.raises(ValueError, match="whole number of periods"):
         build(base.get_arch(ARCH).smoke().replace(moe_every=0, n_layers=6))
 

@@ -52,7 +52,13 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.telemetry.logger", "repro_torch.telemetry.manifest",
             "repro_torch.telemetry.timing", "repro_torch.ckpt.schema", "repro_torch.ckpt.writer",
             "repro_torch.ckpt.keys", "repro_torch.ckpt.preemption",
-            "repro_torch.checkpoint.io"} <= set(modules)
+            "repro_torch.checkpoint.io", "repro_torch.models.transformer",
+            "repro_torch.models.moe", "repro_torch.models.rwkv",
+            "repro_torch.configs.olmo_1b", "repro_torch.configs.qwen3_0_6b",
+            "repro_torch.configs.gemma3_1b", "repro_torch.configs.internvl2_2b",
+            "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.configs.rwkv6_1_6b",
+            "repro_torch.configs.deepseek_coder_33b",
+            "repro_torch.configs.dbrx_132b"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
@@ -76,3 +82,7 @@ def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch):
     jamba = get_arch("jamba-1.5-large-398b").smoke().replace(moe_every=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.serve(cfg=jamba)
+    for arch in ("olmo-1b", "granite-moe-3b-a800m", "rwkv6-1.6b", "internvl2-2b",
+                 "jamba-1.5-large-398b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.serve(arch, smoke=True)
