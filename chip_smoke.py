@@ -164,7 +164,22 @@ each of which fails the run by raising:
    with 0 dropped assignments required; then jamba at one period with 4
    of its 16 experts: the prefill on 1 x 1024 (1 flash_attention and 7
    ssd_scan launches, counted), its peak memory, 8 decode steps, and the
-   f32 check on the period's first two layers (attention, Mamba + MoE).
+   f32 check on the period's first two layers (attention, Mamba + MoE);
+12. training the zoo through the launcher (``repro_torch.launch.train``,
+   the CLI's defaults: 8 clients, 4 local steps, 4 x 64 tokens, per_client
+   ColRel rounds over a fully connected topology with COPT-alpha weights):
+   qwen3-0.6b at full width and depth in bf16 from one init, 3 rounds each
+   through the collapse, the kernel (kernel 1 once a round, counted) and
+   the segmented path (kernel 2's grouped launch once a round, counted),
+   the three agreeing (see TR_LOSS_RTOL, TR_PARAM_REL), with s/round and
+   peak memory; the kernel path once more as one chunk of 2 (one round
+   captured and replayed), bitwise its per-round run's first two rounds,
+   with the graph's pool and the peak; kernels 1 and 2 timed at qwen3's
+   (8, d) beside their bounds, plain versions and ``w @ X``, each held
+   bitwise to its plain version there; and each of the ten arch ids at
+   --smoke for 2 rounds, while tools/torch_kill_resume_smoke.py runs at
+   --smoke on the card in its own processes (16 rounds in chunks of 4,
+   SIGTERM after chunk 2, --resume, rounds.csv byte-equal).
 
 Phase 3 also holds kernel 10 against its plain version at (BH, T, D) in
 {(2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64)}, f32 and
@@ -328,6 +343,24 @@ ZOO_CMP_DEPTH = 2
 ZOO_CMP_P = {"gemma3-1b": 640}
 ZOO_CMP_P_DEFAULT = 64
 ZOO_CMP_TOL = 2e-2
+# Phase 12: qwen3-0.6b at full width trained through the launcher with its
+# CLI defaults, TR_ROUNDS rounds a path from one init; the kernel path again
+# as one chunk of TR_CHUNK rounds; the ten arch ids at --smoke for
+# TR_SMOKE_ROUNDS rounds.  The collapse and the kernel paths sum the same
+# client deltas in another order (f32), and the bf16 params round the
+# updates: a last-bit difference in an update flips a bf16 rounding now
+# and then, and training carries it on.  The paths are held per round by
+# loss (rtol TR_LOSS_RTOL) and after TR_ROUNDS rounds by the relative L2
+# of the whole param tree (TR_PARAM_REL), about a quarter of one bf16 ulp
+# (2^-8) spread over every param; the segmented path repeats the kernel's
+# arithmetic.
+TR_ARCH = "qwen3-0.6b"
+TR_ROUNDS, TR_CHUNK, TR_SMOKE_ROUNDS = 3, 2, 2
+# tools/torch_kill_resume_smoke.py in phase 12: rounds and chunk (the tool's
+# own defaults, 32 and 8, take ~43 s on the card)
+TR_KILL_ROUNDS, TR_KILL_CHUNK = 16, 4
+TR_LOSS_RTOL, TR_PARAM_REL = 1e-3, 1e-3
+TR_REPS = 20
 # Kernels 3 and 7 at their timed shapes (phase 5; tools/kernel_times.py):
 # relay_mix at the kernel benchmark's n=16, d=2^20 f32, block_relay_mix on
 # the clustered cifar_cnn_full stack (C=2 x m=5, d=D_FULL); the timed calls
@@ -2644,6 +2677,10 @@ def main():
     torch.cuda.empty_cache()
     serve_zoo(dev, card, wrappers)
 
+    # -- 12. training the zoo through the launcher -----------------------------
+    torch.cuda.empty_cache()
+    train_zoo(dev, card, wrappers, rows, flush)
+
     print(f"[smoke] the script's wall, the build included: {time.perf_counter() - t_main:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -2817,6 +2854,174 @@ def serve_zoo(dev, card, wrappers):
         del p32, je_bundle
     torch.cuda.empty_cache()
     print(f"[zoo] phase 11 wall {time.perf_counter() - t11:.1f} s [{card}]")
+
+
+def train_zoo(dev, card, wrappers, rows, flush):
+    """Phase 12: the zoo trained through ``repro_torch.launch.train`` (see
+    TR_*); kernels 1 and 2 timed at qwen3's (8, d), their rows of the
+    ``kernels`` line given the ``train_*`` figures."""
+    from repro_torch import tree
+    from repro_torch.configs.base import CLI_ALIASES, get_arch
+    from repro_torch.core import flatten
+    from repro_torch.kernels import fused_aggregate as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import build as build_model
+    from repro_torch.models import count_params
+
+    t12 = time.perf_counter()
+    cfg = get_arch(TR_ARCH).full()
+    init = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    d = count_params(init)
+    sizes = [math.prod(s_) for s_ in flatten.flat_spec(init).shapes]
+    print(f"[train] {TR_ARCH} full(): {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads} kv heads, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {d:,} params in {len(sizes)} leaves; the launcher's "
+          f"defaults (8 clients, 4 local steps, batch 4 x 64 tokens, per_client, sgd(0.25), "
+          f"PS sgd_momentum(1.0, 0.9)) [{card}]")
+
+    def s_round(res):
+        return [round(b_["seconds"] / b_["rounds"], 4) for b_ in res.blocks]
+
+    base = ["--arch", TR_ARCH, "--rounds", str(TR_ROUNDS)]
+    runs = {}
+    for label, flags, expect in (
+            ("collapse", [], {}),
+            ("kernel", ["--fused-kernel"], {"fused_aggregate": TR_ROUNDS}),
+            ("segmented", ["--fused-kernel", "--segment-d", "1"],
+             {"row_stream_segments": TR_ROUNDS})):
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, launched = run_counted(wrappers, f"train {label}", lambda: train(
+            [*base, *flags], params=init), expect)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        leaves = tree.leaves(res.params)
+        check(res.rounds == TR_ROUNDS and all(math.isfinite(v) for v in res.metrics["loss"])
+              and all(x.device.type == dev.type and x.dtype == cfg.tdtype
+                      and bool(torch.isfinite(x).all()) for x in leaves)
+              and sum(x.numel() for x in leaves) == d,
+              f"train {label}: {res.rounds} rounds, loss {res.metrics['loss']}")
+        print(f"[train] {label} path, {TR_ROUNDS} rounds per round: loss "
+              f"{res.metrics['loss']}, participation {res.metrics['participation']}, |delta| "
+              f"{res.metrics['delta_norm']}, launches {launched}, wall {secs:.1f} s [{card}]")
+        print(f"[train] {label} s/round {s_round(res)} [{card}]")
+        print(f"[train] {label} peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated) "
+              f"[{card}]")
+        runs[label] = res
+        res.server_state = res.agg_state = None
+    for other in ("segmented", "collapse"):
+        a, b_ = runs["kernel"], runs[other]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(b_.metrics["loss"],
+                                                           a.metrics["loss"]))
+        diff = sum(float((x.float() - y.float()).pow(2).sum())
+                   for x, y in zip(tree.leaves(b_.params), tree.leaves(a.params)))
+        norm = sum(float(y.float().pow(2).sum()) for y in tree.leaves(a.params))
+        rel = math.sqrt(diff / norm)
+        bitwise = all(torch.equal(x, y) for x, y in zip(tree.leaves(b_.params),
+                                                        tree.leaves(a.params)))
+        check(loss_err <= TR_LOSS_RTOL and rel <= TR_PARAM_REL
+              and b_.metrics["participation"] == a.metrics["participation"],
+              f"train {other} vs kernel: loss rel {loss_err}, params rel L2 {rel}")
+        print(f"[train] {other} vs kernel after {TR_ROUNDS} rounds: loss max rel "
+              f"{loss_err:.3e} (rtol {TR_LOSS_RTOL}), params relative L2 {rel:.3e} (tol "
+              f"{TR_PARAM_REL}), bitwise {bitwise}")
+
+    # the kernel path as one chunk: one round captured and replayed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    chunk, secs, launched = run_counted(wrappers, "train kernel chunk", lambda: train(
+        ["--arch", TR_ARCH, "--rounds", str(TR_CHUNK), "--fused-kernel", "--chunk",
+         str(TR_CHUNK)], params=init), {"fused_aggregate": 2})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = chunk.scan_stats
+    want = {k: v[:TR_CHUNK] for k, v in runs["kernel"].metrics.items()}
+    check(chunk.metrics == want, f"train chunk of {TR_CHUNK} vs per round: {chunk.metrics} != "
+          f"{want}")
+    check(st["captured_launches"] == {"fused_aggregate_cuda": 1} and st["replays"] == TR_CHUNK,
+          f"train chunk: captured {st['captured_launches']}, replays {st['replays']}")
+    print(f"[train] kernel path as one chunk of {TR_CHUNK}: every metric of both rounds bitwise "
+          f"the per-round run's; launches {launched} (the warm-up round's and the capture's), "
+          f"kernel 1 captured once and replayed {st['replays']} times; warm-up "
+          f"{st['warmup_s']:.2f} s, capture {st['capture_s']:.2f} s, instantiate "
+          f"{st['instantiate_s']:.2f} s, wall {secs:.1f} s [{card}]")
+    print(f"[train] chunk peak memory {peak_gb:.2f} GB, graph pool {st['pool_bytes'] / 1e9:.2f} "
+          f"GB [{card}]")
+    del chunk, runs
+    torch.cuda.empty_cache()
+
+    # kernels 1 and 2 at qwen3's (8, d): the stack the kernel path aggregates
+    # and its segment list
+    n8 = 8
+    g = torch.Generator(device=dev).manual_seed(0)
+    A = torch.rand(n8, n8, generator=g, device=dev) * 0.5 + 0.1
+    tu = (torch.rand(n8, generator=g, device=dev) < 0.7).float()
+    td = (torch.rand(n8, n8, generator=g, device=dev) < 0.5).float()
+    X = torch.randn(n8, d, generator=g, device=dev)
+    w = ops.collapsed_weight_row(A, tu, td)
+    mono = fa.fused_aggregate_cuda(A, tu, td, X)
+    check(torch.equal(mono, fa.fused_aggregate_plain(A, tu, td, X)),
+          f"fused_aggregate at (8, {d}) differs from its plain version")
+    stack_bytes, out_bytes = 4 * n8 * d, 4 * d
+    fa_t = dict(
+        train_ms=median_ms(lambda: fa.fused_aggregate_cuda(A, tu, td, X), flush, TR_REPS),
+        train_plain_ms=median_ms(lambda: fa.fused_aggregate_plain(A, tu, td, X), flush, 3),
+        train_library_ms=median_ms(lambda: torch.matmul(w, X), flush, TR_REPS),
+        train_bound_ms=bound_ms(4 * (2 * n8 * n8 + n8) + stack_bytes + out_bytes,
+                                2 * n8 * d + 3 * n8 * n8))
+    segs = [s_.contiguous() for s_ in X.split(sizes, dim=1)]
+    del X
+    got = fa.row_stream_segments_cuda(w, segs)
+    check(torch.equal(got, mono) and torch.equal(got, fa.row_stream_segments_plain(w, segs)),
+          f"row_stream_segments over qwen3's {len(segs)} segments differs from the monolithic "
+          f"kernel or its plain version")
+    rs_t = dict(
+        train_ms=median_ms(lambda: fa.row_stream_segments_cuda(w, segs), flush, TR_REPS),
+        train_plain_ms=median_ms(lambda: fa.row_stream_segments_plain(w, segs), flush, 3),
+        train_library_ms=sum(median_ms(lambda: torch.matmul(w, s_), flush, 5) for s_ in segs),
+        train_bound_ms=bound_ms(4 * n8 + stack_bytes + out_bytes, 2 * n8 * d))
+    del segs, got, mono
+    torch.cuda.empty_cache()
+    for name, t_, launches, shape in (
+            ("fused_aggregate", fa_t, TR_ROUNDS, f"(8, {d}) f32"),
+            ("row_stream", rs_t, TR_ROUNDS, f"{len(sizes)} segments, (8, {d}) f32, one launch")):
+        row = next(r_ for r_ in rows if r_["name"] == name)
+        row.update(t_, train_shape=shape, train_launches=launches, train_max_abs_err=0.0)
+        print(f"[train] {name} at qwen3-0.6b's {shape}: kernel {t_['train_ms']:.4f} ms "
+              f"({(stack_bytes + out_bytes) / t_['train_ms'] / 1e9:.3f} TB/s), bound "
+              f"{t_['train_bound_ms']:.4f} ms (bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), plain "
+              f"{t_['train_plain_ms']:.4f} ms, library {t_['train_library_ms']:.4f} ms "
+              f"({'w @ X' if name == 'fused_aggregate' else 'w @ seg summed'}); bitwise its "
+              f"plain version; {launches} launches in {TR_ROUNDS} rounds of its path [{card}]")
+
+    # the CLI's kill/resume at --smoke on the card, in its own processes,
+    # while this one trains every arch id at --smoke for TR_SMOKE_ROUNDS rounds
+    t = time.perf_counter()
+    kill_resume = subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "torch_kill_resume_smoke.py"), "--rounds",
+         str(TR_KILL_ROUNDS), "--chunk", str(TR_KILL_CHUNK)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        for arch in sorted(CLI_ALIASES):
+            res, secs, _ = run_counted(wrappers, f"train {arch} smoke", lambda: train(
+                ["--arch", arch, "--smoke", "--rounds", str(TR_SMOKE_ROUNDS)]), {})
+            check(res.rounds == TR_SMOKE_ROUNDS
+                  and all(math.isfinite(v) for v in res.metrics["loss"] + res.metrics["delta_norm"])
+                  and all(x.device.type == dev.type for x in tree.leaves(res.params)),
+                  f"train {arch} --smoke: {res.metrics}")
+            print(f"[train] {arch} --smoke, {TR_SMOKE_ROUNDS} rounds: loss {res.metrics['loss']}, "
+                  f"s/round {s_round(res)} (beside the kill/resume processes) [{card}]")
+        out, _ = kill_resume.communicate(timeout=600)
+    finally:
+        if kill_resume.poll() is None:
+            kill_resume.kill()
+            kill_resume.wait()
+    tail = out.strip().splitlines()[-1] if out.strip() else ""
+    check(kill_resume.returncode == 0 and tail.startswith("PASS"),
+          f"torch_kill_resume_smoke: rc {kill_resume.returncode}, {tail!r}\n{out[-3000:]}")
+    print(f"[train] tools/torch_kill_resume_smoke.py --rounds {TR_KILL_ROUNDS} --chunk "
+          f"{TR_KILL_CHUNK} on the card (SIGTERM after chunk 2, --resume): {tail}; with the "
+          f"{len(CLI_ALIASES)} arch ids' smoke runs {time.perf_counter() - t:.1f} s [{card}]")
+    print(f"[train] phase 12 wall {time.perf_counter() - t12:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

@@ -50,7 +50,7 @@ from repro_torch import strategies as strategy_registry
 from repro_torch import tree
 from repro_torch.core import flatten
 from repro_torch.kernels import launch_counts
-from repro_torch.optim import Optimizer, global_norm
+from repro_torch.optim import Optimizer, apply_updates, global_norm
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext
 from repro_torch.telemetry.device import instrument_round_fn
 
@@ -114,7 +114,7 @@ def _local_sgd(loss_fn: Callable, client_opt: Optimizer, params: Params,
         grads = tree.unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
         upd, ostate = client_opt.update(grads, ostate, p)
         with torch.no_grad():
-            p = tree.map(lambda x, u: (x.float() + u).to(x.dtype), p, upd)
+            p = apply_updates(p, upd)
         losses.append(loss.detach())
     delta = tree.map(lambda a, b: a.detach().float() - b.float(), p, params)
     return delta, torch.mean(torch.stack(losses))
@@ -168,14 +168,18 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
         # w_j = sum_i tau_i tau_ji alpha_ij / n), logged as weight_sum
         w = strategy.weights(tau_up, tau_dd, A)
         if rc.mode == "per_client":
-            deltas, losses = [], []
+            # each client's delta goes into its row of the update stack as
+            # it is made, so that at most one client's delta is held apart
+            # from the stack (stacking a list of them held two stacks)
+            stacked, losses = None, []
             for i in range(rc.n_clients):
                 delta, loss = _local_sgd(loss_fn, client_opt, params,
                                          {k: v[i] for k, v in batches.items()})
-                deltas.append(delta)
+                if stacked is None:
+                    stacked = tree.map(lambda d: d.new_empty((rc.n_clients, *d.shape)), delta)
+                tree.map(lambda s_, d: s_[i].copy_(d), stacked, delta)
+                del delta
                 losses.append(loss)
-            stacked = tree.map(lambda *ds: torch.stack(ds), *deltas)
-            del deltas
             with torch.no_grad():
                 gdelta, agg_state = strategy.aggregate_tree(
                     stacked, tau_up, tau_dd, A, agg_state, ctx)
@@ -222,7 +226,7 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
             # the paper's PS momentum
             pseudo = tree.map(lambda d: -d, gdelta)
             upd, server_state = server_opt.update(pseudo, server_state, params)
-            new_params = tree.map(lambda p, u: (p.float() + u).to(p.dtype), params, upd)
+            new_params = apply_updates(params, upd)
             participation = torch.sum(tau_up.float())
             d_flat = flatten.flat_spec(params).d
             bits_per_client = float(d_flat * strategy.wire_bits_per_coord(d_flat))

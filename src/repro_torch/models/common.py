@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree
 
@@ -34,7 +35,9 @@ __all__ = [
     "count_params",
     "stack_layers",
     "layer_at",
+    "unstack_layers",
     "lm_head",
+    "embed_tokens",
     "masked_lm_loss",
 ]
 
@@ -148,6 +151,25 @@ def stack_layers(layers: Sequence[Params]) -> Params:
 def layer_at(stacked: Params, i: int) -> Params:
     """Layer ``i`` of a stacked tree, as views (writes land in the stack)."""
     return tree.map(lambda x: x[i], stacked)
+
+
+def unstack_layers(stacked: Params) -> List[Params]:
+    """Every layer of a stacked tree, as views: one ``unbind`` a leaf, so a
+    backward pass writes each leaf's gradient once, as one stack (indexing
+    each layer, ``x[i]``, instead writes a zero gradient the size of the
+    whole stack for every layer and adds them up)."""
+    leaves, treedef = tree.flatten(stacked)
+    per_leaf = [x.unbind(0) for x in leaves]
+    return [tree.unflatten(treedef, [u[i] for u in per_leaf]) for i in range(len(per_leaf[0]))]
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``params["embed"]`` for ``tokens``.  ``F.embedding``'s
+    backward sums the gradients of repeated tokens in a fixed order on the
+    CPU and on CUDA; indexing's (``embed[tokens]``, an accumulating
+    ``index_put_``) does not on several CPU threads, which made two runs of
+    the same training differ in the last bit."""
+    return F.embedding(tokens, params["embed"])
 
 
 def lm_head(cfg: "ModelConfig", params: Params) -> torch.Tensor:

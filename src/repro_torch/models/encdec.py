@@ -25,10 +25,12 @@ from repro_torch.models.common import (
     apply_norm,
     dense_init,
     embed_init,
+    embed_tokens,
     init_norm,
     layer_at,
     masked_lm_loss,
     stack_layers,
+    unstack_layers,
 )
 
 __all__ = ["init_encdec", "encode", "decode_train", "loss_fn", "init_cache", "decode_step"]
@@ -75,9 +77,8 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
     apply to it (kept for the reference's signature)."""
     del use_flash
     x = frames.to(cfg.tdtype) @ params["frontend_proj"]
-    for i in range(cfg.n_encoder_layers):
+    for lp in unstack_layers(params["encoder"]):
         # (the reference's constrain_act sharding hint: a no-op on one device)
-        lp = layer_at(params["encoder"], i)
         x = x + attn_mod.attention(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
                                    causal=False, use_flash=False)
         x = x + mlp_mod.apply_mlp(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
@@ -89,10 +90,9 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor, memory:
     """Teacher-forced decoder: tokens (B, T) and memory (B, F, d) ->
     logits (B, T, V); the causal self-attention takes the flash kernel
     under ``use_flash``."""
-    x = params["embed"][tokens]
-    for i in range(cfg.n_layers):
+    x = embed_tokens(params, tokens)
+    for lp in unstack_layers(params["decoder"]):
         # (the reference's constrain_act sharding hint: a no-op on one device)
-        lp = layer_at(params["decoder"], i)
         x = x + attn_mod.attention(cfg, lp["self"], apply_norm(cfg, lp["ln1"], x),
                                    use_flash=use_flash)
         x = x + attn_mod.attention(cfg, lp["cross"], apply_norm(cfg, lp["ln_x"], x),
@@ -126,7 +126,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, memory_len: int,
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Tensor, pos):
     """token (B, 1) at position ``pos`` -> (logits (B, V), cache), the
     cache's layer slices written in place."""
-    x = params["embed"][token]
+    x = embed_tokens(params, token)
     memory = cache["memory"]
     B = token.shape[0]
     qpos = torch.full((B, 1), int(pos), device=x.device)

@@ -33,11 +33,13 @@ from repro_torch.models.common import (
     apply_norm,
     dense_init,
     embed_init,
+    embed_tokens,
     init_norm,
     layer_at,
     lm_head,
     masked_lm_loss,
     stack_layers,
+    unstack_layers,
 )
 
 __all__ = ["n_periods", "init_hybrid", "forward", "loss_fn", "init_cache", "decode_step"]
@@ -127,10 +129,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, use_flash
     runs the attention layers through the flash-attention kernel and the
     Mamba layers' SSD through ``ssd_scan``; without it, both take their
     plain versions (the reference's attention path, ``ssd_scan_plain``)."""
-    x = params["embed"][tokens]
+    x = embed_tokens(params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_periods(cfg)):
-        x, a = _period_fwd(cfg, layer_at(params["periods"], i), x, use_flash)
+    for pp in unstack_layers(params["periods"]):
+        x, a = _period_fwd(cfg, pp, x, use_flash)
         aux = aux + a
     x = apply_norm(cfg, params["final_norm"], x)
     return x @ lm_head(cfg, params), aux
@@ -164,7 +166,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
     """token (B, 1) at position ``pos`` -> (logits (B, V), cache), the
     cache's KV slots and Mamba states written in place."""
     period, attn_pos, mamba_pos, moe_pos = _pattern(cfg)
-    x = params["embed"][token]
+    x = embed_tokens(params, token)
     for i in range(n_periods(cfg)):
         pp, kv = layer_at(params["periods"], i), layer_at(cache["kv"], i)  # views of the cache
         for j in range(period):

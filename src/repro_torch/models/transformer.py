@@ -33,11 +33,13 @@ from repro_torch.models.common import (
     apply_norm,
     dense_init,
     embed_init,
+    embed_tokens,
     init_norm,
     layer_at,
     lm_head,
     masked_lm_loss,
     stack_layers,
+    unstack_layers,
 )
 
 __all__ = ["GLOBAL_WINDOW", "window_array", "init_lm", "forward", "loss_fn", "init_cache",
@@ -123,7 +125,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     """tokens (B, T) -> (logits (B, P + T, V), f32 MoE aux summed over the
     layers); ``prefix_embeds`` (B, P, d) (a VLM's patches) go through
     ``proj`` in front of the tokens."""
-    x = params["embed"][tokens]
+    x = embed_tokens(params, tokens)
     if prefix_embeds is not None:
         pref = prefix_embeds.to(x.dtype) @ params["proj"]
         x = torch.cat([pref, x], dim=1)
@@ -131,12 +133,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     static = cfg.static_window_pattern and cfg.sliding_window is not None
     period = (cfg.local_global_ratio or 0) + 1
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l in range(cfg.n_layers):
+    for l, lp in enumerate(unstack_layers(params["layers"])):
         sw = None
         if static:  # the unrolled stack: local layers banded, global ones dense
             is_global = cfg.local_global_ratio and l % period == cfg.local_global_ratio
             sw = None if is_global else cfg.sliding_window
-        x, a = _block(cfg, layer_at(params["layers"], l), x, wins[l], use_flash, static_window=sw)
+        x, a = _block(cfg, lp, x, wins[l], use_flash, static_window=sw)
         if a is not None:
             aux = aux + a
     x = apply_norm(cfg, params["final_norm"], x)
@@ -172,7 +174,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Param
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Tensor, pos):
     """token (B, 1) at position ``pos`` -> (logits (B, V), cache), the
     cache written in place."""
-    x = params["embed"][token]
+    x = embed_tokens(params, token)
     wins = window_array(cfg)
     for l in range(cfg.n_layers):
         lp, st = layer_at(params["layers"], l), layer_at(cache, l)  # st: views of the cache

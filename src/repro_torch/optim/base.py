@@ -2,9 +2,9 @@
 ``(init, update)`` pair, optax-style.
 
 ``update(grads, state, params) -> (updates, state)`` returns *additive*
-updates.  The round keeps these functional instead of using
-``torch.optim`` because the PS feeds the negated round delta to its
-optimizer as a pseudo-gradient.
+updates; :func:`apply_updates` adds them.  The round keeps these
+functional instead of using ``torch.optim`` because the PS feeds the
+negated round delta to its optimizer as a pseudo-gradient.
 """
 
 from __future__ import annotations
@@ -18,13 +18,18 @@ from repro_torch import tree
 
 Params = Any
 
-__all__ = ["Optimizer", "tree_zeros_like", "global_norm"]
+__all__ = ["Optimizer", "apply_updates", "tree_zeros_like", "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Params], Any]
     update: Callable[[Params, Any, Params], tuple]
+
+
+def apply_updates(params: Params, updates: Params) -> Params:
+    """``params + updates``, added in f32 and cast back to each param's dtype."""
+    return tree.map(lambda p, u: (p.float() + u).to(p.dtype), params, updates)
 
 
 def tree_zeros_like(params: Params, dtype=torch.float32) -> Params:

@@ -34,7 +34,11 @@ round is captured, without a new capture.  Each family of the model zoo
 f32 on the card is held to the port's CPU path on the same params at
 ZOO_TOL; ``apply_moe`` on the card gives the same bits twice, and breaks
 top-k ties toward the lower expert; RWKV6's decode states are each
-layer's own.
+layer's own.  The ``train`` step kind of ``launch/steps.py`` on the zoo's
+smoke LMs (collapse and kernel 1), chunked against per round, bitwise; and
+learning-rate schedules (Theorem 1's decay, a warm-up cosine under AdamW)
+under a captured round, the device step counter advancing on each replay,
+bitwise the eager rounds.
 """
 
 import pytest
@@ -1429,3 +1433,87 @@ def test_rwkv_decode_states_are_each_layers_own_on_the_card(dev):
     for x in tree.leaves(cache):
         assert x.is_cuda and x.shape[0] == cfg.n_layers
         assert float(x[0].abs().max()) > 0 and not torch.equal(x[0], x[1])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m", "rwkv6-1.6b",
+                                  "internvl2-2b"])
+@pytest.mark.parametrize("fused", ["collapse", "kernel"])
+def test_train_step_kind_chunk_equals_per_round(deterministic, arch, fused):
+    """``build_step(bundle, "train")`` per round against its chunked engine
+    (``scan_rounds``, one round captured and replayed) on a zoo LM's smoke
+    config: every metric, the params and the server state bitwise."""
+    from repro_torch import strategies, tree
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.steps import SERVER_MOMENTUM, build_step
+    from repro_torch.models import build
+    from repro_torch.optim import sgd_momentum
+
+    dev = deterministic
+    cfg = get_arch(arch).smoke()
+    bundle = build(cfg)
+    n, T, B, S, K = 4, 2, 2, 16, 3
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init(g)
+    toks = torch.randint(0, cfg.vocab_size, (K, n, T, B, S + 1), generator=g, device=dev)
+    batches = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
+    if cfg.frontend_tokens:
+        batches["prefix"] = torch.randn(K, n, T, B, cfg.frontend_tokens, cfg.d_model,
+                                        generator=g, device=dev)
+    tau_up = (torch.rand(K, n, generator=g, device=dev) < 0.7).float()
+    tau_dd = (torch.rand(K, n, n, generator=g, device=dev) < 0.6).float()
+    A = torch.rand(n, n, generator=g, device=dev) * 0.5
+    strategy = strategies.get("colrel", fused=fused)
+    server = sgd_momentum(1.0, beta=SERVER_MOMENTUM)
+    round_fn = build_step(bundle, "train", n_clients=n, aggregation=strategy)
+    p, ss, metrics = params, server.init(params), []
+    for i in range(K):
+        p, ss, _, m = round_fn(p, ss, (), {k: v[i] for k, v in batches.items()}, tau_up[i],
+                               tau_dd[i], A)
+        metrics.append(m)
+    scan = build_step(bundle, "train", n_clients=n, aggregation=strategy, scan_rounds=K)
+    sp, sss, _, sm = scan(params, server.init(params), (), batches, tau_up, tau_dd, A)
+    assert scan.graph is not None
+    for a, b in zip(tree.leaves((sp, sss)), tree.leaves((p, ss))):
+        assert torch.equal(a, b)
+    for key in round_fn.metric_keys:
+        assert torch.equal(sm[key], torch.stack([m[key].float() for m in metrics])), key
+    if fused == "kernel":
+        assert scan.stats["captured_launches"] == {"fused_aggregate_cuda": 1}
+
+
+def test_schedules_advance_under_a_captured_round(deterministic):
+    """The server optimizer on Theorem 1's schedule, and AdamW on a warm-up
+    cosine: K replays of the captured round step the schedule K times from
+    the device step counter, bitwise the eager rounds."""
+    from repro_torch import tree
+    from repro_torch.fl.round import RoundConfig, make_round_fn, make_scan_round_fn
+    from repro_torch.optim import adamw, inverse_round_decay, sgd, sgd_momentum, warmup_cosine
+
+    dev = deterministic
+
+    def loss_fn(params, batch):
+        return torch.sum((params["x"] - batch["t"][0]) ** 2), {}
+
+    K = 4
+    g = torch.Generator(device=dev).manual_seed(0)
+    batches = {"t": torch.randn(K, 3, 2, 1, 50, generator=g, device=dev)}
+    tau_up = torch.ones(K, 3, device=dev)
+    tau_dd = torch.ones(K, 3, 3, device=dev)
+    A = torch.full((3, 3), 1.0 / 3, device=dev)
+    p0 = {"x": torch.zeros(50, device=dev)}
+    for client, server in ((sgd(0.1), sgd_momentum(inverse_round_decay(4.0, 2), beta=0.9)),
+                           (adamw(warmup_cosine(0.1, 1, 4)), sgd_momentum(
+                               inverse_round_decay(2.0, 1), beta=0.5, nesterov=True))):
+        rc = RoundConfig(n_clients=3, local_steps=2)
+        round_fn = make_round_fn(loss_fn, client, server, rc)
+        p, ss = p0, server.init(p0)
+        for i in range(K):
+            p, ss, _, _ = round_fn(p, ss, (), {"t": batches["t"][i]}, tau_up[i], tau_dd[i], A)
+        scan = make_scan_round_fn(loss_fn, client, server, rc)
+        sp, sss, _, _ = scan(p0, server.init(p0), (), batches, tau_up, tau_dd, A)
+        assert scan.graph is not None and int(sss["step"]) == K == int(ss["step"])
+        for a, b in zip(tree.leaves((sp, sss)), tree.leaves((p, ss))):
+            assert torch.equal(a, b)
+        # a second chunk continues the schedule from step K
+        sp2, sss2, _, _ = scan(sp, sss, (), batches, tau_up, tau_dd, A)
+        assert int(sss2["step"]) == 2 * K

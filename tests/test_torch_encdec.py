@@ -120,8 +120,9 @@ def test_configs_and_registry_match_reference():
 
 
 def test_unported_families_and_the_train_step_raise():
-    """Every family builds (the zoo is ported); the train step (ROADMAP.md
-    item 16) and an unknown arch_type raise."""
+    """Every family builds (the zoo is ported); an unknown arch_type raises,
+    and so does the train step without its client count (since item 16 it
+    builds the round)."""
     for arch_type in ("dense", "moe", "ssm", "vlm"):
         b = build(ModelConfig(arch_type=arch_type, n_experts=4 if arch_type == "moe" else 0,
                               top_k=2 if arch_type == "moe" else 0))
@@ -132,8 +133,9 @@ def test_unported_families_and_the_train_step_raise():
         "router", "wd", "wg", "wu"]
     with pytest.raises(ValueError, match="unknown arch_type"):
         build(ModelConfig(arch_type="diffusion"))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="n_clients"):
         build_step(build(base.get_arch(ARCH).smoke()), "train")
+    assert callable(build_step(build(base.get_arch(ARCH).smoke()), "train", n_clients=2))
 
 
 def test_init_has_the_reference_tree_shapes_and_scales(smoke):

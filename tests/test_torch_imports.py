@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the reference package, and its entry
-points run on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``repro_torch``, and neither
+``chip_smoke.py`` nor ``tools/torch_kill_resume_smoke.py``, imports JAX or
+the reference package, and its entry points run on CUDA unless the caller
+asks for the CPU."""
 
 import ast
 import pathlib
@@ -13,6 +14,7 @@ import torch
 from repro_torch.configs.base import get_arch
 from repro_torch.fl import experiment, trainer
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -20,7 +22,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "torch_kill_resume_smoke.py"]
 
 
 def _imported_modules(path):
@@ -58,7 +61,9 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.configs.gemma3_1b", "repro_torch.configs.internvl2_2b",
             "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.configs.rwkv6_1_6b",
             "repro_torch.configs.deepseek_coder_33b",
-            "repro_torch.configs.dbrx_132b"} <= set(modules)
+            "repro_torch.configs.dbrx_132b", "repro_torch.launch.train",
+            "repro_torch.launch.specs", "repro_torch.optim.schedule",
+            "repro_torch.optim.adam"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
@@ -86,3 +91,7 @@ def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch):
                  "jamba-1.5-large-398b"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.serve(arch, smoke=True)
+    for argv in (["--smoke", "--rounds", "1"], ["--smoke", "--arch", "rwkv6-1.6b", "--chunk", "2",
+                                                "--rounds", "2"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_cli.main(argv)
