@@ -179,7 +179,16 @@ each of which fails the run by raising:
    bitwise to its plain version there; and each of the ten arch ids at
    --smoke for 2 rounds, while tools/torch_kill_resume_smoke.py runs at
    --smoke on the card in its own processes (16 rounds in chunks of 4,
-   SIGTERM after chunk 2, --resume, rounds.csv byte-equal).
+   SIGTERM after chunk 2, --resume, rounds.csv byte-equal);
+13. the one-card dry run and the examples (see DR_*, EST_*, EXAMPLES):
+   ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b`` on prefill_32k
+   and decode_32k in processes of their own on the host (fake tensors; each
+   record's FLOPs, unfused bytes, peak and roofline terms printed); the
+   dry run's estimate held against the card for qwen3-0.6b at full width
+   cut to 2 layers, the train, prefill and decode kinds each traced on fake
+   tensors and run on the card (FLOPs equal, the fake peak within 10% of
+   the card's); and the three ``examples/*_torch.py`` at small settings on
+   the card, each exiting 0.
 
 Phase 3 also holds kernel 10 against its plain version at (BH, T, D) in
 {(2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64)}, f32 and
@@ -200,6 +209,7 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -211,9 +221,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
-BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+from repro_torch.launch.roofline import BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S  # noqa: E402
 HIDE_HOST_CYCLES = 4_000_000  # ~2 ms of device sleep, longer than any timed call's host enqueue
 ROUNDS = 3
 # rounds a chunk of the timed chunked engine (phase 4b)
@@ -367,6 +375,23 @@ TR_REPS = 20
 # of kernels 3 and 7 and of kernel 11
 MIX_N, MIX_D = 16, 2**20
 MIX_REPS, SSD_REPS = 100, 20
+# Phase 13: the dry run's CLI on DR_ARCH x DR_SHAPES (host only, fake
+# tensors; train_4k's 16-client trace takes minutes and is left out); then
+# DR_ARCH at full width cut to EST_DEPTH layers, each step kind traced on
+# fake tensors and run on the card: the train kind at the launcher's 8
+# clients, T = DRYRUN_LOCAL_STEPS, 4 x 256 tokens a client (colrel with
+# fused=False: no kernel on the path), the prefill kind at 4 x 1024 and
+# one decode step against a 4 x 1024 cache.  FLOPs must be equal and the
+# fake peak within EST_PEAK_REL of the card's max_memory_allocated above
+# its baseline.  Then the three examples at small settings, on the card.
+DR_ARCH, DR_SHAPES = "qwen3-0.6b", ("prefill_32k", "decode_32k")
+EST_DEPTH, EST_CLIENTS = 2, 8
+EST_PEAK_REL = 0.10
+# (script, flags, a line its run must print)
+EXAMPLES = (("quickstart_torch.py", ["--rounds", "2", "--local-steps", "2"], "ColRel final loss"),
+            ("train_colrel_cifar_torch.py", ["--rounds", "2", "--out",
+                                             "build/examples_torch/colrel_cifar"], "final: "),
+            ("serve_decode_torch.py", ["--batch", "2", "--gen", "8"], "decode: "))
 
 
 def check(cond, msg):
@@ -2681,6 +2706,10 @@ def main():
     torch.cuda.empty_cache()
     train_zoo(dev, card, wrappers, rows, flush)
 
+    # -- 13. the one-card dry run and the examples -----------------------------
+    torch.cuda.empty_cache()
+    dry_run_and_examples(dev, card, wrappers)
+
     print(f"[smoke] the script's wall, the build included: {time.perf_counter() - t_main:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -3022,6 +3051,96 @@ def train_zoo(dev, card, wrappers, rows, flush):
           f"{TR_KILL_CHUNK} on the card (SIGTERM after chunk 2, --resume): {tail}; with the "
           f"{len(CLI_ALIASES)} arch ids' smoke runs {time.perf_counter() - t:.1f} s [{card}]")
     print(f"[train] phase 12 wall {time.perf_counter() - t12:.1f} s [{card}]")
+
+
+def dry_run_and_examples(dev, card, wrappers):
+    """Phase 13: the dry run's CLI and the examples in processes of their
+    own, while this one holds the dry run's estimate against the card (see
+    DR_*, EST_*, EXAMPLES)."""
+    from repro_torch import strategies
+    from repro_torch.configs.base import InputShape, get_arch
+    from repro_torch.launch import dryrun
+
+    t13 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out_dir = ROOT / "build" / "dryrun_torch_smoke"
+    (ROOT / "build" / "examples_torch").mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for shape in DR_SHAPES:
+            # host only: the dry run needs no card and must not touch it
+            procs[f"dryrun {shape}"] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DR_ARCH, "--shape",
+                 shape, "--out", str(out_dir)], cwd=ROOT, env={**env, "CUDA_VISIBLE_DEVICES": ""},
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for script, flags, _ in EXAMPLES:
+            procs[script] = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / script), *flags], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        # (b) the estimate against the card, meanwhile
+        cfg = get_arch(DR_ARCH).full().replace(n_layers=EST_DEPTH)
+        colrel = strategies.get("colrel", fused=False)
+        for shape in (InputShape("est_train", 256, 4 * EST_CLIENTS, "train"),
+                      InputShape("est_prefill", 1024, 4, "prefill"),
+                      InputShape("est_decode", 1024, 4, "decode")):
+            step, specs = dryrun.prepare(DR_ARCH, shape, n_clients=EST_CLIENTS,
+                                         aggregation=colrel, cfg=cfg)
+            t = time.perf_counter()
+            fake = dryrun.trace(step, specs)
+            fake_s = time.perf_counter() - t
+            real, _, _ = run_counted(wrappers, f"estimate {shape.kind}",
+                                     lambda: dryrun.measure(step, specs), {})
+            gap = (fake["peak_bytes"] - real["peak_bytes"]) / real["peak_bytes"]
+            print(f"[dryrun] {DR_ARCH} full width cut to {EST_DEPTH} layers, {shape.kind} kind "
+                  f"({shape.global_batch} x {shape.seq_len} tokens"
+                  f"{f', {EST_CLIENTS} clients, T = 2, colrel fused=False' if shape.kind == 'train' else ''}"
+                  f"): FLOPs fake {fake['flops']:.6e} card {real['flops']:.6e}; peak above the "
+                  f"baseline fake {fake['peak_bytes'] / 1e9:.4f} GB card {real['peak_bytes'] / 1e9:.4f}"
+                  f" GB (torch.cuda.max_memory_allocated; fake - card {100 * gap:+.2f}%, limit "
+                  f"{100 * EST_PEAK_REL:.0f}%); arguments {fake['argument_bytes'] / 1e9:.4f} GB; "
+                  f"fake trace {fake_s:.1f} s on the host, the card's step {real['seconds']:.3f} s "
+                  f"[{card}]")
+            check(fake["flops"] == real["flops"] and fake["flops"] > 0,
+                  f"dry run {shape.kind}: fake FLOPs {fake['flops']} != card {real['flops']}")
+            check(abs(gap) <= EST_PEAK_REL,
+                  f"dry run {shape.kind}: fake peak {fake['peak_bytes']} vs card "
+                  f"{real['peak_bytes']}: {100 * gap:+.2f}%")
+            check(real["finite"], f"dry run {shape.kind}: the card's outputs are not finite")
+            del step, specs
+            torch.cuda.empty_cache()
+
+        # (a) the dry run's records, (c) the examples
+        for label, proc in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            tail = out.strip().splitlines()[-12:]
+            check(proc.returncode == 0, f"{label}: rc {proc.returncode}\n{out[-3000:]}")
+            if label.startswith("dryrun"):
+                shape = label.split()[1]
+                rec = json.loads((out_dir / f"{DR_ARCH}_{shape}_1_colrel.json").read_text())
+                check(rec["chips"] == 1 and rec["path"] == "plain" and rec["probe"] is None
+                      and rec["hlo_flops_per_chip"] > 0 and rec["collective_bytes_per_chip"] == 0,
+                      f"dry run record {shape}: {rec}")
+                m, r = rec["memory_analysis"], rec["roofline"]
+                peak = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+                print(f"[dryrun] python -m repro_torch.launch.dryrun --arch {DR_ARCH} --shape "
+                      f"{shape} (host, fake tensors): FLOPs {rec['hlo_flops_per_chip']:.6e}, "
+                      f"unfused bytes {rec['hlo_bytes_per_chip']:.6e}, peak {peak / 1e9:.3f} GB "
+                      f"(arguments {m['argument_size_in_bytes'] / 1e9:.3f}), roofline compute "
+                      f"{r['compute_s']:.4f} s memory {r['memory_s']:.4f} s -> {r['bottleneck']}, "
+                      f"useful FLOP ratio {rec['useful_flop_ratio']:.4f}; build {rec['lower_s']} s, "
+                      f"trace {rec['compile_s']} s")
+            else:
+                marker = next(m_ for s_, _, m_ in EXAMPLES if s_ == label)
+                check(any(marker in line for line in tail), f"{label}: no {marker!r} line\n{out}")
+                for line in tail:
+                    print(f"[examples] {label} (on the card): {line}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[dryrun] phase 13 wall {time.perf_counter() - t13:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

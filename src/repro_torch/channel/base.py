@@ -1,4 +1,5 @@
-"""Per-round connectivity service: the paper's i.i.d. channel.
+"""Per-round connectivity service: the :class:`ChannelProcess` protocol
+and the paper's i.i.d. channel.
 
 A numpy copy of the host side of ``repro.channel.base``.  The trainer
 asks a channel for
@@ -32,14 +33,30 @@ that block bitwise.
 
 from __future__ import annotations
 
+from typing import Protocol, runtime_checkable
+
 import numpy as np
 import torch
 
 from repro_torch.ckpt.schema import rng_from_json, rng_state_to_json
 from repro_torch.core.connectivity import LinkModel, sample_rounds
 
-__all__ = ["BlockBufferedChannel", "StaticChannel", "pair_lane_table", "stacked_trace",
-           "static_scan_sampler"]
+__all__ = ["ChannelProcess", "BlockBufferedChannel", "StaticChannel", "pair_lane_table",
+           "stacked_trace", "static_scan_sampler"]
+
+
+@runtime_checkable
+class ChannelProcess(Protocol):
+    """Anything that can serve per-round connectivity realizations."""
+
+    @property
+    def n(self) -> int: ...
+
+    def tau_for_round(self, r: int) -> tuple[np.ndarray, np.ndarray]: ...
+
+    def trace(self, start: int, rounds: int): ...
+
+    def model_for_round(self, r: int) -> LinkModel: ...
 
 
 def stacked_trace(channel, start: int, rounds: int):

@@ -36,7 +36,8 @@ draw.
 no-trace mode: the reference's integer thresholds on a 15-bit lattice
 (:func:`_device_arrays`), one round per call from a ``torch.Generator``,
 with the packed ``(n + m,)`` gate state carried as one device tensor and
-updated in place.
+updated in place.  :func:`sample_ge_rounds` runs it ``rounds`` times from
+stationary starts: a whole trace on the generator's device in one call.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from repro_torch.core.connectivity import LinkModel
 __all__ = [
     "GEParams",
     "gilbert_elliott",
+    "sample_ge_rounds",
     "sample_ge_rounds_host",
     "ge_scan_sampler",
     "MarkovChannel",
@@ -290,6 +292,25 @@ def ge_scan_sampler(params: GEParams, device):
         return ups.float(), tau_dd, state
 
     return init_fn, sample_fn
+
+
+def sample_ge_rounds(params: GEParams, generator: torch.Generator,
+                     rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A whole GE trace on ``generator``'s device: ``(R, n)`` uplinks and
+    ``(R, n, n)`` D2D, float32, the chains started from their stationary law.
+
+    :func:`ge_scan_sampler` run ``rounds`` times, each round written into
+    its row.  The same law as :func:`sample_ge_rounds_host` and the
+    reference's ``sample_ge_rounds``; not their draws.
+    """
+    n, dev = params.n, generator.device
+    init_fn, sample_fn = ge_scan_sampler(params, dev)
+    state = init_fn(generator)
+    ups = torch.empty((rounds, n), dtype=torch.float32, device=dev)
+    dds = torch.empty((rounds, n, n), dtype=torch.float32, device=dev)
+    for r in range(rounds):
+        ups[r], dds[r], state = sample_fn(state, generator)
+    return ups, dds
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,10 @@ columns match ``repro.core.flatten`` one for one.
 * :func:`ravel_stacked` allocates the ``(n, d)`` buffer once and copies
   each leaf into its column range, casting per leaf on the way in, so no
   full-size casted copy is made first.
+* :func:`ravel` does the same for one tree, ``(d,)``.
+* :func:`ravel_stacked_concat` is the concatenating ravel, kept as the
+  oracle and the baseline that copies the parts before it concatenates:
+  bitwise :func:`ravel_stacked`.
 * :func:`ravel_stacked_segments` returns the per-leaf ``(n, d_i)``
   column segments (reshape + cast only); the segment-streaming kernel
   path consumes them and the monolithic stack never exists.
@@ -27,7 +31,9 @@ from repro_torch import tree as tree_util
 __all__ = [
     "FlatSpec",
     "flat_spec",
+    "ravel",
     "ravel_stacked",
+    "ravel_stacked_concat",
     "ravel_stacked_segments",
     "unravel",
     "unravel_stacked",
@@ -64,6 +70,22 @@ def flat_spec(tree: Any, *, stacked: bool = False) -> FlatSpec:
     return FlatSpec(treedef, shapes)
 
 
+def ravel(tree: Any, *, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Tree -> contiguous ``(d,)`` buffer (leaf order = :mod:`repro_torch.tree`
+    order): one preallocated buffer filled leaf by leaf, the cast folded
+    into each copy."""
+    leaves = tree_util.leaves(tree)
+    if len(leaves) == 1:
+        return leaves[0].reshape(-1).to(dtype or leaves[0].dtype)
+    d = sum(leaf.numel() for leaf in leaves)
+    out = torch.empty((d,), dtype=dtype or leaves[0].dtype, device=leaves[0].device)
+    offset = 0
+    for leaf in leaves:
+        out[offset:offset + leaf.numel()].copy_(leaf.reshape(-1))
+        offset += leaf.numel()
+    return out
+
+
 def ravel_stacked(tree: Any, *, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Stacked tree (leaves ``(n, *shape)``) -> contiguous ``(n, d)``: one
     preallocated buffer filled leaf by leaf, the cast folded into each copy."""
@@ -77,6 +99,18 @@ def ravel_stacked(tree: Any, *, dtype: Optional[torch.dtype] = None) -> torch.Te
         out[:, offset:offset + p.shape[1]].copy_(p)
         offset += p.shape[1]
     return out
+
+
+def ravel_stacked_concat(tree: Any, *, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The concatenating ravel: each leaf's casted ``(n, d_i)`` part is
+    made in full before one ``torch.cat``.  Bitwise :func:`ravel_stacked`;
+    the extra copy is what that function saves."""
+    leaves = tree_util.leaves(tree)
+    n = leaves[0].shape[0]
+    parts = [leaf.reshape(n, -1) for leaf in leaves]
+    if dtype is not None:
+        parts = [p.to(dtype) for p in parts]
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
 def ravel_stacked_segments(tree: Any, *,

@@ -5,7 +5,8 @@ batches in both packages.
 
 ``ClientDataset`` wraps one client's local arrays and yields minibatches
 with its own RNG (clients sample independently, as in local SGD).
-``stack_chunk_batches`` gathers K rounds of T local steps for every
+``federated_batches`` stacks one minibatch per client into a leading
+client axis, ``(n_clients, B, ...)``.  ``stack_chunk_batches`` gathers K rounds of T local steps for every
 client in one vectorized fancy-index per client, laid out
 ``(K, n, T, B, ...)``; the per-round trainer takes ``K = 1``.
 
@@ -23,7 +24,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-__all__ = ["ClientDataset", "make_federated_clients", "stack_chunk_batches"]
+__all__ = ["ClientDataset", "federated_batches", "make_federated_clients",
+           "stack_chunk_batches"]
 
 
 @dataclasses.dataclass
@@ -39,11 +41,21 @@ class ClientDataset:
         self.n = next(iter(ns.values()))
         self._rng = np.random.default_rng(self.seed)
 
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        idx = self._rng.integers(0, self.n, size=self.batch_size)
+        return {k: v[idx] for k, v in self.arrays.items()}
+
     def next_batches(self, m: int) -> Dict[str, np.ndarray]:
         """``m`` successive minibatches in one vectorized gather: leaves
         ``(m, B, ...)``, the same RNG stream as ``m`` draws of one batch."""
         idx = self._rng.integers(0, self.n, size=(m, self.batch_size))
         return {k: v[idx] for k, v in self.arrays.items()}
+
+
+def federated_batches(clients: Sequence[ClientDataset]) -> Dict[str, np.ndarray]:
+    """One synchronized round of minibatches, stacked (n_clients, B, ...)."""
+    batches = [c.next_batch() for c in clients]
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
 def stack_chunk_batches(

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_cifar", "quadratic_problem"]
+__all__ = ["synthetic_cifar", "synthetic_tokens", "quadratic_problem"]
 
 
 def synthetic_cifar(
@@ -41,6 +41,31 @@ def synthetic_cifar(
         np.float32
     )
     return images.astype(np.float32), labels
+
+
+def synthetic_tokens(
+    n_seqs: int,
+    seq_len: int,
+    vocab: int,
+    seed: int = 0,
+    n_styles: int = 10,
+):
+    """Markov-ish token sequences with per-style transition structure, so an
+    LM has signal to fit.  Returns (tokens (N, T) int32, styles (N,) int32).
+    Styles play the role of "classes" for non-IID partitioning."""
+    rng = np.random.default_rng(seed)
+    styles = rng.integers(0, n_styles, size=n_seqs).astype(np.int32)
+    # per-style preferred successor offset: tok_{t+1} = tok_t * a + b + noise
+    a = rng.integers(1, 7, size=n_styles)
+    b = rng.integers(0, vocab, size=n_styles)
+    toks = np.empty((n_seqs, seq_len), dtype=np.int32)
+    toks[:, 0] = rng.integers(0, vocab, size=n_seqs)
+    for t in range(1, seq_len):
+        clean = (toks[:, t - 1] * a[styles] + b[styles]) % vocab
+        noise = rng.integers(0, vocab, size=n_seqs)
+        use_noise = rng.random(n_seqs) < 0.1
+        toks[:, t] = np.where(use_noise, noise, clean)
+    return toks, styles
 
 
 def quadratic_problem(n_clients: int, dim: int, mu: float = 1.0, L: float = 10.0,

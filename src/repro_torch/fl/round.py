@@ -49,6 +49,7 @@ import torch
 from repro_torch import strategies as strategy_registry
 from repro_torch import tree
 from repro_torch.core import flatten
+from repro_torch.core.aggregation import Aggregation
 from repro_torch.kernels import launch_counts
 from repro_torch.optim import Optimizer, apply_updates, global_norm
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext
@@ -56,7 +57,7 @@ from repro_torch.telemetry.device import instrument_round_fn
 
 Params = Any
 
-StrategySpec = Union[str, AggregationStrategy]
+StrategySpec = Union[Aggregation, str, AggregationStrategy]
 
 MODES = ("per_client", "client_sequential", "weighted_grad", "weighted_flat")
 
@@ -77,7 +78,19 @@ class RoundConfig:
     n_clients: int
     local_steps: int  # the paper's T
     mode: str = "per_client"
+    # a registry name, an Aggregation value or a constructed strategy
     aggregation: StrategySpec = "colrel"
+    # accepted for the reference's signature and read by nothing in the
+    # round, as in the reference, where no line reads it either
+    use_flash: bool = False
+    # the reference pins the vmapped client axis to these mesh axes; one
+    # card has no mesh, so it is accepted and inert
+    spmd_axes: Optional[tuple] = None
+    # the reference unrolls its local-step and client scans for its dry-run
+    # cost probes; the port's loops are eager Python, so it is inert
+    unroll: bool = False
+    # DEPRECATED: forwards, with a warning, to colrel's fused="kernel"
+    use_fused_kernel: bool = False
     # dtype of the flattened (n, d) update stack; accumulation is f32 either way
     flat_dtype: str = "float32"
     # columns each CUDA block of the aggregation kernels covers
@@ -87,9 +100,16 @@ class RoundConfig:
 
     def __post_init__(self):
         check_mode(self.mode)
+        # fail at construction; canonical_name does not instantiate, so no
+        # deprecation warning fires twice
+        name = strategy_registry.canonical_name(self.aggregation)
+        if self.use_fused_kernel and name != "colrel":
+            raise ValueError("use_fused_kernel only applies to the colrel strategy "
+                             f"(got {self.aggregation}); it would be silently inert")
 
     def resolve_strategy(self) -> AggregationStrategy:
-        return strategy_registry.resolve(self.aggregation)
+        """The configured strategy instance (deprecated spellings warn)."""
+        return strategy_registry.resolve(self.aggregation, fused_kernel=self.use_fused_kernel)
 
     def execution_context(self) -> ExecutionContext:
         return ExecutionContext(

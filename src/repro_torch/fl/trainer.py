@@ -103,8 +103,10 @@ class FLTrainer:
         server_opt: Optimizer,
         *,
         local_steps: int = 8,
-        strategy: "str | strategy_registry.AggregationStrategy" = "colrel",
+        strategy: "str | strategy_registry.AggregationStrategy | None" = None,
+        aggregation: "str | strategy_registry.AggregationStrategy | None" = None,
         mode: str = "per_client",
+        use_fused_kernel: bool = False,
         seed: int = 0,
         eval_fn: Optional[Callable[[Params], Dict[str, float]]] = None,
         channel=None,
@@ -135,7 +137,11 @@ class FLTrainer:
         logger every stream goes through (a facade-only one by default) and
         ``profile`` an optional :class:`~repro_torch.telemetry.ProfileWindow`."""
         self.device = resolve_device(device)
-        self.strategy = strategy_registry.resolve(strategy)
+        if strategy is not None and aggregation is not None:
+            raise ValueError("pass strategy= or aggregation=, not both")
+        spec = strategy if strategy is not None else (
+            aggregation if aggregation is not None else "colrel")
+        self.strategy = strategy_registry.resolve(spec, fused_kernel=use_fused_kernel)
         if mode == "async":
             if getattr(self.strategy, "is_async", False):
                 if async_options:

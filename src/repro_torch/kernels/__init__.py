@@ -17,8 +17,25 @@ and the device dispatch in :mod:`repro_torch.kernels.ops`.
 
 Sources are in ``csrc/`` and are compiled by :mod:`.build` at first use.
 Each ``*_cuda`` wrapper counts its launches in ``launches``;
-:func:`launch_counts` reads them all.
+:func:`launch_counts` reads them all.  The entry points are in
+:mod:`.ops`, which dispatches on the tensor's device; the wrappers of the
+reference's four exported ``*_pallas`` kernels are exported here too.
 """
+
+from . import ops
+from .flash_attention import flash_attention_cuda
+from .fused_aggregate import fused_aggregate_cuda
+from .relay_mix import relay_mix_cuda
+from .ssd_scan import ssd_scan_cuda
+
+__all__ = [
+    "ops",
+    "launch_counts",
+    "flash_attention_cuda",
+    "fused_aggregate_cuda",
+    "relay_mix_cuda",
+    "ssd_scan_cuda",
+]
 
 
 def launch_counts() -> dict:

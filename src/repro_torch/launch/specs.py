@@ -15,7 +15,7 @@ model's size.  There is no mesh: the caller gives ``n_clients``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -76,16 +76,17 @@ def _train_batch_spec(cfg: ModelConfig, n_clients: int, shape: InputShape,
     return spec
 
 
-def input_specs(arch_id: str, shape_name: str, n_clients: int,
+def input_specs(arch_id: str, shape_name: Union[str, InputShape], n_clients: int,
                 cfg: Optional[ModelConfig] = None,
                 fl_mode: Optional[str] = None) -> Dict[str, Any]:
     """All inputs of one (arch x input-shape) combination, as meta tensors,
-    under ``kind`` with the ``cfg`` they were made for."""
+    under ``kind`` with the ``cfg`` they were made for.  ``shape_name`` is
+    a name of ``INPUT_SHAPES`` or an :class:`InputShape` of its own."""
     if cfg is None:
         cfg = get_arch(arch_id).full()
     fl_mode = fl_mode or cfg.fl_mode
     bundle = build(cfg)
-    shape = INPUT_SHAPES[shape_name]
+    shape = shape_name if isinstance(shape_name, InputShape) else INPUT_SHAPES[shape_name]
     C = int(n_clients)
 
     if shape.kind == "train":

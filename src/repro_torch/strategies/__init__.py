@@ -8,10 +8,20 @@ scheme, K-hop ``multihop`` relaying and the staleness-weighted
 
     strategies.available()   # ('async_colrel', 'clustered', 'colrel', ..., 'quantized')
     s = strategies.get("colrel", fused="kernel")
+
+The deprecated ``colrel_fused`` alias and ``resolve(..., fused_kernel=True)``
+warn and forward to ``colrel``'s ``fused`` option.
 """
 
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext
-from repro_torch.strategies.registry import available, get, register, resolve
+from repro_torch.strategies.registry import (
+    available,
+    canonical_name,
+    get,
+    register,
+    register_deprecated_alias,
+    resolve,
+)
 from repro_torch.strategies.classic import (
     ColRelStrategy,
     FedAvgBlind,
@@ -29,8 +39,10 @@ __all__ = [
     "AsyncRelayStrategy",
     "ExecutionContext",
     "available",
+    "canonical_name",
     "get",
     "register",
+    "register_deprecated_alias",
     "resolve",
     "ClusteredColRelStrategy",
     "ColRelStrategy",

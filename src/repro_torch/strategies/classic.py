@@ -124,3 +124,10 @@ registry.register("colrel", ColRelStrategy)
 registry.register("fedavg_perfect", FedAvgPerfect)
 registry.register("fedavg_blind", FedAvgBlind)
 registry.register("fedavg_nonblind", FedAvgNonBlind)
+registry.register_deprecated_alias(
+    "colrel_fused",
+    "colrel",
+    "Aggregation.COLREL_FUSED is deprecated; use "
+    "strategies.get('colrel', fused=True) instead",
+    fused="collapse",
+)

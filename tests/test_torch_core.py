@@ -184,11 +184,13 @@ def test_colrel_kernel_segments_equal_monolithic_bitwise():
 
 
 def test_unported_strategies_raise():
-    for name in ("colrel_fused",):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            strategies.get(name)
-    assert {"memory", "quantized", "clustered", "async_colrel", "multihop"} <= set(
-        strategies.available())
+    # every strategy of the reference, its deprecated alias included, is
+    # ported: none raises, and the alias resolves to colrel's collapse
+    assert set(jstrategies.available(include_deprecated=True)) == set(
+        strategies.available(include_deprecated=True))
+    with pytest.warns(DeprecationWarning, match="COLREL_FUSED"):
+        s = strategies.get("colrel_fused")
+    assert s.name == "colrel" and s.fused == "collapse"
 
 
 def test_copt_alpha_on_fig2b_equals_reference():

@@ -38,7 +38,9 @@ layer's own.  The ``train`` step kind of ``launch/steps.py`` on the zoo's
 smoke LMs (collapse and kernel 1), chunked against per round, bitwise; and
 learning-rate schedules (Theorem 1's decay, a warm-up cosine under AdamW)
 under a captured round, the device step counter advancing on each replay,
-bitwise the eager rounds.
+bitwise the eager rounds.  ``sample_ge_rounds`` draws a whole GE trace on
+the card; the dry run's fake trace of qwen3-0.6b's smoke steps has the
+card's FLOPs and a peak within 10% of the card's.
 """
 
 import pytest
@@ -1517,3 +1519,51 @@ def test_schedules_advance_under_a_captured_round(deterministic):
         # a second chunk continues the schedule from step K
         sp2, sss2, _, _ = scan(sp, sss, (), batches, tau_up, tau_dd, A)
         assert int(sss2["step"]) == 2 * K
+
+
+def test_sample_ge_rounds_on_the_card(dev):
+    """The whole-trace GE sampler draws on its generator's device: float32
+    taus there, diagonal 1, symmetric on fully reciprocal links, the same
+    trace twice from one seed, each uplink's marginal within 5 standard
+    deviations (effective sample size (1 - lam) / (1 + lam))."""
+    import numpy as np
+
+    from repro_torch.channel import gilbert_elliott, sample_ge_rounds
+    from repro_torch.core import topology
+
+    n, R, lam = 6, 4000, 0.8
+    model = topology.fully_connected(n, 0.6, p_c=0.5, rho=1.0)
+    params = gilbert_elliott(model, memory=lam)
+    ups, dds = sample_ge_rounds(params, torch.Generator(device=dev).manual_seed(0), R)
+    assert ups.device.type == dds.device.type == "cuda" and ups.dtype == torch.float32
+    assert torch.equal(dds, dds.transpose(1, 2))
+    assert bool((torch.diagonal(dds, dim1=1, dim2=2) == 1).all())
+    again = sample_ge_rounds(params, torch.Generator(device=dev).manual_seed(0), R)
+    assert torch.equal(again[0], ups) and torch.equal(again[1], dds)
+    tol = 5 * np.sqrt(model.p * (1 - model.p) / (R * (1 - lam) / (1 + lam)))
+    assert np.all(np.abs(ups.mean(0).cpu().numpy() - model.p) < tol)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dry_run_estimate_against_the_card(dev, kind):
+    """qwen3-0.6b at smoke(): the fake trace's FLOPs equal the card's and
+    its peak is within 10% of the card's max_memory_allocated above the
+    baseline (the limit phase 13 of chip_smoke.py holds at full width)."""
+    from repro_torch import strategies
+    from repro_torch.configs.base import InputShape, get_arch
+    from repro_torch.launch import dryrun
+
+    shape = {"train": InputShape("t", 64, 16, "train"),
+             "prefill": InputShape("p", 256, 4, "prefill"),
+             "decode": InputShape("d", 256, 4, "decode")}[kind]
+    step, specs = dryrun.prepare("qwen3-0.6b", shape, n_clients=4,
+                                 aggregation=strategies.get("colrel", fused=False),
+                                 cfg=get_arch("qwen3-0.6b").smoke())
+    fake = dryrun.trace(step, specs)
+    # a first run allocates what lives past it (cuBLAS's workspace for each
+    # thread that runs a GEMM, forward and backward); the second is the step's
+    dryrun.measure(step, specs)
+    real = dryrun.measure(step, specs)
+    assert real["device"].startswith("cuda") and real["finite"]
+    assert fake["flops"] == real["flops"] > 0
+    assert abs(fake["peak_bytes"] - real["peak_bytes"]) <= 0.10 * real["peak_bytes"]

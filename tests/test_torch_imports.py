@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``repro_torch``, and neither
-``chip_smoke.py`` nor ``tools/torch_kill_resume_smoke.py``, imports JAX or
-the reference package, and its entry points run on CUDA unless the caller
-asks for the CPU."""
+``chip_smoke.py``, ``tools/torch_kill_resume_smoke.py`` nor the
+``examples/*_torch.py``, imports JAX or the reference package, and its
+entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -11,19 +12,21 @@ import sys
 import pytest
 import torch
 
-from repro_torch.configs.base import get_arch
+from repro_torch.configs.base import InputShape, get_arch
 from repro_torch.fl import experiment, trainer
-from repro_torch.launch import serve
+from repro_torch.launch import dryrun, serve
 from repro_torch.launch import train as train_cli
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = ("quickstart_torch.py", "train_colrel_cifar_torch.py", "serve_decode_torch.py")
 
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "torch_kill_resume_smoke.py"]
+                                         ROOT / "tools" / "torch_kill_resume_smoke.py"] + [
+        ROOT / "examples" / name for name in EXAMPLES]
 
 
 def _imported_modules(path):
@@ -63,7 +66,8 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.configs.deepseek_coder_33b",
             "repro_torch.configs.dbrx_132b", "repro_torch.launch.train",
             "repro_torch.launch.specs", "repro_torch.optim.schedule",
-            "repro_torch.optim.adam"} <= set(modules)
+            "repro_torch.optim.adam", "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.core.aggregation"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
@@ -95,3 +99,29 @@ def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch):
                                                 "--rounds", "2"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_cli.main(argv)
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(name.removesuffix(".py"),
+                                                  ROOT / "examples" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_dry_run_needs_no_card_and_measure_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    step, specs = dryrun.prepare("qwen3-0.6b", InputShape("d", 16, 2, "decode"),
+                                 cfg=get_arch("qwen3-0.6b").smoke())
+    assert dryrun.trace(step, specs)["flops"] > 0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.measure(step, specs)
+    assert dryrun.measure(step, specs, device="cpu")["device"] == "cpu"
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_need_cuda_unless_told_otherwise(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", [name])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _example(name).main()
