@@ -26,31 +26,31 @@ each of which fails the run by raising:
    pass; the grouped launch of kernel 9 (f32, bf16) over the 61 segments
    against its plain version, the per-segment kernel 9 and kernel 8, at
    C = 1 against the grouped kernel 2, and at n = 16,384, bitwise;
-4. the main path at full width: three rounds of the paper's ColRel CNN
+4. the main path at full width: two rounds of the paper's ColRel CNN
    experiment (cifar_cnn_full) through the fused kernel, again through the
    segment-streaming kernel and again through the collapse path, with the
    kernels' launch counts read around each run; the three runs must agree;
    then the quadratic task on the card against the port's CPU path; then
-   three rounds of the memory strategy under bursty (Markov) blockage and
+   two rounds of the memory strategy under bursty (Markov) blockage and
    of the int8 quantized strategy, each through its kernel, its segment
    and its plain (fused=False) path, launches read around each run (the
    segmented colrel, memory, quantized and clustered paths launch their
    grouped kernel once a round); the
    relay mixes through their entry points (ops.relay_mix at the kernel
    benchmark's n=16, d=2^20, ops.block_relay_mix on cifar_cnn_full
-   deltas); three rounds of clustered relaying of cifar_cnn_full (n=10 as
+   deltas); two rounds of clustered relaying of cifar_cnn_full (n=10 as
    2 clusters of 5, an FLTrainer given a clustered channel and per-cluster
    COPT-alpha weights) through the block kernel, the block segments, the
    collapse and the faithful path, and once more through the kernel under
-   clustered bursty blockage; and three rounds of the population path
+   clustered bursty blockage; and two rounds of the population path
    (n=1024 as 64 clusters of 16, the D=64 quadratic), kernel against
    fused=False;
 4b. the chunked engine (``run(rounds, chunk=K)``): every kernel path of
    phase 4 (colrel kernel, segmented and collapse; memory kernel and
    segmented; int8 quantized kernel and segmented; clustered kernel and
    segmented; the n=1024 population) once more from the same init as one
-   chunk of three rounds, one round captured as a CUDA graph and replayed
-   three times, held bitwise to its per-round run (params, server state,
+   chunk of two rounds, one round captured as a CUDA graph and replayed
+   twice, held bitwise to its per-round run (params, server state,
    strategy state, per-round metrics), with its kernel launches a chunk
    (captured a round x replays), warm-up, capture and instantiate
    seconds, graph nodes and memory; then the colrel kernel path's s/round
@@ -60,16 +60,16 @@ each of which fails the run by raising:
    the taus drawn inside the captured round (``no_trace=True``) on the
    static and the Markov channel;
 4c. the other round modes and async relaying, on cifar_cnn_full at the
-   paper's widths from one init: three rounds of client_sequential held to
+   paper's widths from one init: two rounds of client_sequential held to
    phase 4's per_client collapse run, and of weighted_grad at T=1 held to
    per_client at T=1 (participation, uplink_bits and weight_sum equal,
-   params within MODE_REL_L2), each once more as one chunk of three,
-   bitwise; three rounds of async colrel under Markov blockage (T=1)
+   params within MODE_REL_L2), each once more as one chunk of two,
+   bitwise; two rounds of async colrel under Markov blockage (T=1)
    through the kernel (kernel 1 once a round), segmented (kernel 2 once a
    round, over the whole staging buffer) and plain paths, ages and
    staleness metrics bitwise equal across them, each once more as one
    chunk and with no_trace, bitwise with all 8 metrics; a zero-blockage
-   round bitwise equal to sync colrel's; three async rounds of the n=1024
+   round bitwise equal to sync colrel's; two async rounds of the n=1024
    population through kernel 8; seconds a round per round and chunked
    (K=4) of client_sequential, weighted_grad (T=1), per_client (T=1) and
    the async kernel path (T=8) beside phase 4b's colrel kernel path; and
@@ -87,8 +87,8 @@ each of which fails the run by raising:
    the kernel path again as 2 chunks of 4, bitwise its per-round run with
    both alpha swaps, from one capture; four rounds of mobility_fast with
    oracle COPT-alpha of the channel's round-0 model through kernel 1;
-   three rounds of calibrated multihop (K=2), per round and as one chunk,
-   bitwise, and K=1 bitwise colrel's collapse; three rounds each of
+   two rounds of calibrated multihop (K=2), per round and as one chunk,
+   bitwise, and K=1 bitwise colrel's collapse; two rounds each of
    quantized topk (fraction 0.1) and randk (0.25), per round and as one
    chunk, bitwise, with uplink_bits as the codec's descriptor gives them;
    no_trace on mobility raising ValueError; then s/round at T=8 per round
@@ -121,7 +121,9 @@ each of which fails the run by raising:
    int8 stack with the folded row given (no_collapse_ms) and a device copy
    of the stack (copy_ms), with its grid;
 6. where one more round of the kernel path spends its time
-   (torch.profiler): the device's busy share and the top operations;
+   (torch.profiler, device activity only: the host's ~500,000 op events
+   took a minute to parse): the device's busy share, the top kernels and
+   the top CUDA runtime calls;
 7. serving seamless-m4t-large-v2 at full width (24 + 24 layers, d_model
    1024, bf16, the port's own init from a seed): the prefill step on 4
    requests of 960 frames and a 4096-token prompt through the flash
@@ -168,7 +170,7 @@ each of which fails the run by raising:
 12. training the zoo through the launcher (``repro_torch.launch.train``,
    the CLI's defaults: 8 clients, 4 local steps, 4 x 64 tokens, per_client
    ColRel rounds over a fully connected topology with COPT-alpha weights):
-   qwen3-0.6b at full width and depth in bf16 from one init, 3 rounds each
+   qwen3-0.6b at full width and depth in bf16 from one init, 2 rounds each
    through the collapse, the kernel (kernel 1 once a round, counted) and
    the segmented path (kernel 2's grouped launch once a round, counted),
    the three agreeing (see TR_LOSS_RTOL, TR_PARAM_REL), with s/round and
@@ -181,14 +183,29 @@ each of which fails the run by raising:
    --smoke on the card in its own processes (16 rounds in chunks of 4,
    SIGTERM after chunk 2, --resume, rounds.csv byte-equal);
 13. the one-card dry run and the examples (see DR_*, EST_*, EXAMPLES):
-   ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b`` on prefill_32k
-   and decode_32k in processes of their own on the host (fake tensors; each
+   ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --mesh card`` on
+   prefill_32k and decode_32k in processes of their own on the host (fake tensors; each
    record's FLOPs, unfused bytes, peak and roofline terms printed); the
    dry run's estimate held against the card for qwen3-0.6b at full width
    cut to 2 layers, the train, prefill and decode kinds each traced on fake
    tensors and run on the card (FLOPs equal, the fake peak within 10% of
    the card's); and the three ``examples/*_torch.py`` at small settings on
-   the card, each exiting 0.
+   the card, each exiting 0;
+14. the multi-device layer on the card (see SH_*): NCCL takes no two ranks
+   on one card, so the sharded code runs on a 1 x 1 ``(data, model)`` mesh
+   of an NCCL group of one: one per_client ColRel round of qwen3-0.6b at
+   full width built by ``build_step(arch, shape, mesh)`` under
+   ``spmd_axes=("data",)``, at the launcher's defaults (8 clients, 4 local
+   steps, 4 x 64 tokens), every param a DTensor on the mesh, held bitwise
+   to the same round without a mesh, s/round of both; the dry run on the
+   reference's 16 x 16 and 2 x 16 x 16 meshes (``--mesh both``, a fake
+   process group on the host) for qwen3-0.6b's train_4k, prefill_32k and
+   decode_32k in processes of their own (per-device FLOPs by aten op,
+   bytes, peak, collective bytes by type and trace seconds printed); and
+   the 1 x 1 mesh's trace of phase 13's three 2-layer steps, in a process
+   of its own, held to phase 13's one-card trace (FLOPs equal, peak within
+   0.1%).  Those four host processes start with phase 5, whose times are
+   the card's own (CUDA events), and are stopped when the script exits.
 
 Phase 3 also holds kernel 10 against its plain version at (BH, T, D) in
 {(2, 128, 64), (8, 256, 32), (2, 192, 128), (64, 1024, 64)}, f32 and
@@ -205,6 +222,7 @@ The line before the last is a JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}.
 """
 
+import atexit
 import contextlib
 import ctypes
 import json
@@ -223,28 +241,28 @@ import torch  # noqa: E402
 
 from repro_torch.launch.roofline import BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S  # noqa: E402
 HIDE_HOST_CYCLES = 4_000_000  # ~2 ms of device sleep, longer than any timed call's host enqueue
-ROUNDS = 3
+ROUNDS = 2
 # rounds a chunk of the timed chunked engine (phase 4b)
 CHUNK_K = 4
 # One aggregation of the same stacked deltas: the kernel, segmented, collapse
 # and faithful paths differ only in f32 summation order.
 AGG_ATOL = 1e-6
-# The population path (n=1024, the D=64 quadratic, no convolutions) after 3
-# rounds, kernel vs fused=False: 1024-term f32 sums in two orders.
+# The population path (n=1024, the D=64 quadratic, no convolutions) after
+# ROUNDS rounds, kernel vs fused=False: 1024-term f32 sums in two orders.
 POP_ATOL = 1e-5
-# Params after 3 rounds: last-bit differences between the paths' deltas are
+# Params after ROUNDS rounds: last-bit differences between the paths' deltas are
 # amplified by training with TF32 convolutions (cuDNN's default); the
 # segmented run repeats the kernel's arithmetic and is expected to be equal.
 PARAM_ATOL = 1e-4
 # The memory and int8 quantized runs, kernel vs fused=False, params and the
-# replay buffer after 3 rounds: the same amplification of last-bit
+# replay buffer after ROUNDS rounds: the same amplification of last-bit
 # differences, and for int8 stochastic rounding turns a sub-pitch difference
 # in an update into a whole grid pitch (max|x_i| / 127) on some coordinates.
 # One aggregation of identical inputs is held at AGG_ATOL above.
 STRATEGY_PARAM_ATOL = 1e-3
 N_LEAVES, D_FULL = 61, 272282  # cifar_cnn_full's parameter tree
 # Phase 4c: client_sequential against per_client's collapse (T=8), and
-# weighted_grad against per_client at T=1, params after 3 rounds by
+# weighted_grad against per_client at T=1, params after ROUNDS rounds by
 # relative L2.  The modes sum the same client deltas or gradients in
 # another order (and weighted_grad applies the weight decay once where the
 # collapse weights it by the realized weight sum, 1e-4 x lr x (sum w - 1)
@@ -363,7 +381,7 @@ ZOO_CMP_TOL = 2e-2
 # (2^-8) spread over every param; the segmented path repeats the kernel's
 # arithmetic.
 TR_ARCH = "qwen3-0.6b"
-TR_ROUNDS, TR_CHUNK, TR_SMOKE_ROUNDS = 3, 2, 2
+TR_ROUNDS, TR_CHUNK, TR_SMOKE_ROUNDS = 2, 2, 2
 # tools/torch_kill_resume_smoke.py in phase 12: rounds and chunk (the tool's
 # own defaults, 32 and 8, take ~43 s on the card)
 TR_KILL_ROUNDS, TR_KILL_CHUNK = 16, 4
@@ -387,6 +405,16 @@ MIX_REPS, SSD_REPS = 100, 20
 DR_ARCH, DR_SHAPES = "qwen3-0.6b", ("prefill_32k", "decode_32k")
 EST_DEPTH, EST_CLIENTS = 2, 8
 EST_PEAK_REL = 0.10
+# Phase 14: the sharded round on a 1 x 1 mesh (NCCL, one rank) at the
+# launcher's defaults, SH_CLIENTS clients x SH_T local steps x SH_B x SH_S
+# tokens, held bitwise to the round without a mesh; the dry run at
+# --mesh both on SH_DR_SHAPES (host processes started with phase 13); the
+# 1 x 1 mesh's traces of phase 13's estimate steps held to its one-card
+# traces: FLOPs equal, the peak within SH_PEAK_REL
+SH_ARCH = "qwen3-0.6b"
+SH_CLIENTS, SH_T, SH_B, SH_S = 8, 4, 4, 64
+SH_DR_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SH_PEAK_REL = 1e-3
 # (script, flags, a line its run must print)
 EXAMPLES = (("quickstart_torch.py", ["--rounds", "2", "--local-steps", "2"], "ColRel final loss"),
             ("train_colrel_cifar_torch.py", ["--rounds", "2", "--out",
@@ -397,6 +425,18 @@ EXAMPLES = (("quickstart_torch.py", ["--rounds", "2", "--local-steps", "2"], "Co
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def est_steps():
+    """Phase 13's estimate steps: qwen3-0.6b at full width cut to EST_DEPTH
+    layers, ``{kind: (shape, cfg, n_clients)}`` for train, prefill and
+    decode, colrel with fused=False."""
+    from repro_torch.configs.base import InputShape, get_arch
+
+    cfg = get_arch(DR_ARCH).full().replace(n_layers=EST_DEPTH)
+    return {"train": (InputShape("est_train", 256, 4 * EST_CLIENTS, "train"), cfg, EST_CLIENTS),
+            "prefill": (InputShape("est_prefill", 1024, 4, "prefill"), cfg, None),
+            "decode": (InputShape("est_decode", 1024, 4, "decode"), cfg, None)}
 
 
 def card_line():
@@ -553,6 +593,15 @@ def main():
           f"float32_matmul_precision={torch.get_float32_matmul_precision()} "
           f"cudnn.deterministic={torch.backends.cudnn.deterministic}")
 
+    # each phase's wall and the script's clock at its end, one line a phase
+    phase_t = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"[smoke] phase {name} wall {now - phase_t[0]:.1f} s, at {now - t_main:.1f} s "
+              f"[{card}]")
+        phase_t[0] = now
+
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     lib = build.library()
@@ -574,6 +623,8 @@ def main():
           f"{lib.repro_relay_mix_blocks_per_sm(110, 0, 1)}), scalar path at "
           f"m=5: {lib.repro_relay_mix_blocks_per_sm(5, 0, 0)}, bf16 16-byte path at m=16: "
           f"{lib.repro_relay_mix_blocks_per_sm(16, 1, 1)}")
+
+    phase_done("2")
 
     # -- 3. kernels against their plain versions ---------------------------
     n = colrel_paper.full().n_clients
@@ -924,6 +975,8 @@ def main():
     ssd_check(SSD_PREFILL_SHAPE, 64, torch.bfloat16, torch.Generator().manual_seed(1), 1 / 16)
     torch.cuda.synchronize()
 
+    phase_done("3")
+
     # -- 4. the main path at full width ------------------------------------
     # one aggregation of cifar_cnn_full-shaped client deltas through every path
     import numpy as np
@@ -1222,6 +1275,8 @@ def main():
     print(f"[main] quadratic, card vs CPU path: losses {on_card.log.loss} vs {on_cpu.log.loss}, "
           f"params max_abs_diff={qdiff:.3e}")
 
+    phase_done("4")
+
     # -- 4b. the chunked engine ---------------------------------------------
     # every kernel path of phase 4 (and the collapse) once more from the same
     # init as one chunk of ROUNDS rounds: one round captured as a CUDA graph
@@ -1335,7 +1390,7 @@ def main():
 
     def per_round_s():
         out = []
-        for _ in range(CHUNK_K):
+        for _ in range(ROUNDS):
             t = time.perf_counter()
             per_exp.run(1)
             torch.cuda.synchronize()
@@ -1401,6 +1456,8 @@ def main():
               f"{secs:.2f} s [{card}]")
         del exp, scan
         torch.cuda.empty_cache()
+
+    phase_done("4b")
 
     # -- 4c. the other round modes and async relaying -------------------------
     # cifar_cnn_full at the paper's widths (n=10, d=272,282) from one init, on
@@ -1617,6 +1674,8 @@ def main():
     print(f"[modes] weighted_flat's check took {time.perf_counter() - t_wf:.1f} s")
     print(f"[modes] phase 4c wall {time.perf_counter() - t4c:.1f} s [{card}]")
 
+    phase_done("4c")
+
     # -- 4d. mobility, adaptive alpha, multihop and the sparsifying codecs ---
     # cifar_cnn_full at the paper's widths from one init; the checks at T=1
     # (the channel, the estimator and the aggregation do not depend on T),
@@ -1822,6 +1881,8 @@ def main():
     print(f"[mobility] the timings took {time.perf_counter() - t_mt:.1f} s")
     print(f"[mobility] phase 4d wall {time.perf_counter() - t4d:.1f} s [{card}]")
 
+    phase_done("4d")
+
     # -- 4e. telemetry and checkpoint/resume --------------------------------------
     # cifar_cnn_full at the paper's widths from one init; the bitwise checks at
     # T=1 (the streak, the vectors and the carry do not depend on T), the
@@ -2014,6 +2075,12 @@ def main():
     shutil.rmtree(ck_root, ignore_errors=True)
     print(f"[telemetry] the timings took {time.perf_counter() - t_tc:.1f} s")
     print(f"[telemetry] phase 4e wall {time.perf_counter() - t4e:.1f} s [{card}]")
+
+    phase_done("4e")
+
+    # phase 14's host processes run beside phase 5, whose times are the
+    # card's own, and are done long before phase 11's host-bound steps
+    host_runs = start_host_runs()
 
     # -- 5. times at the main path's shapes --------------------------------
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
@@ -2245,9 +2312,11 @@ def main():
               f"{statistics.median(secs[1:]):.4f} [{card}]")
     torch.cuda.synchronize()
 
+    phase_done("5")
+
     # -- 6. where one round's time goes ------------------------------------
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         kernel_exp.run(1)
         torch.cuda.synchronize()
@@ -2267,8 +2336,10 @@ def main():
               f"ms={e.self_device_time_total / 1e3:9.2f}")
     host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
-        print(f"[profile] top host: {e.key[:70]:70s} calls={e.count:6d} "
+        print(f"[profile] top CUDA runtime call: {e.key[:57]:57s} calls={e.count:6d} "
               f"ms={e.self_cpu_time_total / 1e3:9.2f}")
+
+    phase_done("6")
 
     # -- 7. seamless-m4t-large-v2 at full width: prefill and serving -------
     from repro_torch.configs.base import get_arch
@@ -2409,6 +2480,8 @@ def main():
         del sv_cache
     torch.cuda.empty_cache()
 
+    phase_done("7")
+
     # -- 8. kernel 10 at the prefill shape ----------------------------------
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     BH, T_, D_ = PF_B * s_cfg.n_heads, PF_T, s_cfg.hd
@@ -2492,6 +2565,8 @@ def main():
           f"is_causal, enable_gqa) {jf_sdpa_ms:.4f} ms [{card}]")
     del qkv, jq, jk, jv, sparams, bundle, res, batch, frames, tokens
     torch.cuda.empty_cache()
+
+    phase_done("8")
 
     # -- 9. jamba-1.5-large-398b at full width, one period: prefill, serving -
     from repro_torch.models import hybrid, mamba
@@ -2648,6 +2723,8 @@ def main():
         del fparams, fk, fpl, f_res
     torch.cuda.empty_cache()
 
+    phase_done("9")
+
     # -- 10. kernel 11 at the prefill shape -----------------------------------
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     BH, T_, Dk_, Dv_ = SSD_PREFILL_SHAPE
@@ -2697,18 +2774,28 @@ def main():
           f"mixer's views (q, k broadcast over {H_} heads, v and y in (B, T, H, P) storage) "
           f"{views_ms:.4f} ms ({ssd_nbytes / views_ms / 1e9:.3f} TB/s) [{card}]")
 
+    phase_done("10")
+
     # -- 11. the rest of the model zoo, served ---------------------------------
     del jparams
     torch.cuda.empty_cache()
     serve_zoo(dev, card, wrappers)
+    phase_done("11")
 
     # -- 12. training the zoo through the launcher -----------------------------
     torch.cuda.empty_cache()
     train_zoo(dev, card, wrappers, rows, flush)
+    phase_done("12")
 
     # -- 13. the one-card dry run and the examples -----------------------------
     torch.cuda.empty_cache()
-    dry_run_and_examples(dev, card, wrappers)
+    one_card = dry_run_and_examples(dev, card, wrappers)
+    phase_done("13")
+
+    # -- 14. the multi-device layer on one card --------------------------------
+    torch.cuda.empty_cache()
+    sharded_layer(dev, card, wrappers, one_card, host_runs)
+    phase_done("14")
 
     print(f"[smoke] the script's wall, the build included: {time.perf_counter() - t_main:.1f} s")
     print(card)
@@ -3058,12 +3145,12 @@ def dry_run_and_examples(dev, card, wrappers):
     own, while this one holds the dry run's estimate against the card (see
     DR_*, EST_*, EXAMPLES)."""
     from repro_torch import strategies
-    from repro_torch.configs.base import InputShape, get_arch
     from repro_torch.launch import dryrun
 
     t13 = time.perf_counter()
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out_dir = ROOT / "build" / "dryrun_torch_smoke"
+    one_card = {}
     (ROOT / "build" / "examples_torch").mkdir(parents=True, exist_ok=True)
     procs = {}
     try:
@@ -3071,7 +3158,8 @@ def dry_run_and_examples(dev, card, wrappers):
             # host only: the dry run needs no card and must not touch it
             procs[f"dryrun {shape}"] = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DR_ARCH, "--shape",
-                 shape, "--out", str(out_dir)], cwd=ROOT, env={**env, "CUDA_VISIBLE_DEVICES": ""},
+                 shape, "--mesh", "card", "--out", str(out_dir)], cwd=ROOT,
+                env={**env, "CUDA_VISIBLE_DEVICES": ""},
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for script, flags, _ in EXAMPLES:
             procs[script] = subprocess.Popen(
@@ -3079,16 +3167,14 @@ def dry_run_and_examples(dev, card, wrappers):
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
         # (b) the estimate against the card, meanwhile
-        cfg = get_arch(DR_ARCH).full().replace(n_layers=EST_DEPTH)
         colrel = strategies.get("colrel", fused=False)
-        for shape in (InputShape("est_train", 256, 4 * EST_CLIENTS, "train"),
-                      InputShape("est_prefill", 1024, 4, "prefill"),
-                      InputShape("est_decode", 1024, 4, "decode")):
+        for shape, cfg, _ in est_steps().values():
             step, specs = dryrun.prepare(DR_ARCH, shape, n_clients=EST_CLIENTS,
                                          aggregation=colrel, cfg=cfg)
             t = time.perf_counter()
             fake = dryrun.trace(step, specs)
             fake_s = time.perf_counter() - t
+            one_card[shape.kind] = fake
             real, _, _ = run_counted(wrappers, f"estimate {shape.kind}",
                                      lambda: dryrun.measure(step, specs), {})
             gap = (fake["peak_bytes"] - real["peak_bytes"]) / real["peak_bytes"]
@@ -3141,6 +3227,176 @@ def dry_run_and_examples(dev, card, wrappers):
                 proc.kill()
                 proc.wait()
     print(f"[dryrun] phase 13 wall {time.perf_counter() - t13:.1f} s [{card}]")
+    return one_card
+
+
+MESH_1X1_OUT = ROOT / "build" / "dryrun_torch_mesh" / "mesh_1x1_traces.json"
+
+
+def mesh_1x1_traces(out):
+    """Phase 14's traces of phase 13's estimate steps on a 1 x 1 mesh of a
+    fake process group of one, written to ``out`` as ``{kind: counts}``
+    (a host process of its own; no card)."""
+    from repro_torch import strategies
+    from repro_torch.dist import make_debug_mesh
+    from repro_torch.launch import dryrun
+
+    colrel = strategies.get("colrel", fused=False)
+    got = {}
+    with dryrun.fake_group(1):
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        for kind, (shape, cfg, clients) in est_steps().items():
+            t = time.perf_counter()
+            step, args, sh = dryrun.prepare_mesh(DR_ARCH, shape, mesh, aggregation=colrel,
+                                                 cfg=cfg, n_clients=clients)
+            got[kind] = dict(dryrun.trace_mesh(step, args, sh),
+                             wall_s=time.perf_counter() - t)
+    pathlib.Path(out).write_text(json.dumps(got))
+
+
+def stop(procs):
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_host_runs():
+    """Phase 14's host processes (fake tensors on fake process groups; no
+    card): the dry run on the reference's meshes, one process a shape, and
+    the 1 x 1 mesh's traces.  They are stopped when the script exits."""
+    env = {**os.environ, "PYTHONPATH": f"{ROOT}{os.pathsep}{ROOT / 'src'}",
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    out_dir = ROOT / "build" / "dryrun_torch_mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    MESH_1X1_OUT.unlink(missing_ok=True)
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SH_ARCH, "--shape", shape,
+         "--mesh", "both", "--by-op", "--out", str(out_dir)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for shape in SH_DR_SHAPES}
+    procs["1x1"] = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.mesh_1x1_traces(sys.argv[1])",
+         str(MESH_1X1_OUT)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    atexit.register(stop, procs)
+    return procs
+
+
+def sharded_layer(dev, card, wrappers, one_card, host_runs):
+    """Phase 14: the multi-device layer on one card (see SH_*): the sharded
+    round on a 1 x 1 mesh against the round without one, the mesh dry
+    runs' records, and the 1 x 1 mesh's traces against phase 13's."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape, get_arch
+    from repro_torch.dist import make_debug_mesh
+    from repro_torch.launch.steps import build_step, place
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import sgd_momentum
+
+    t14 = time.perf_counter()
+    # (a) the sharded round on a 1 x 1 mesh of an NCCL group of one
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    card0 = torch.device("cuda", 0)
+    torch.cuda.set_device(card0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=card0)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        shape = InputShape("sh14", SH_S, SH_B * SH_CLIENTS, "train")
+        step, args, in_sh, _ = build_step(SH_ARCH, shape, mesh, n_clients=SH_CLIENTS)
+        plain, _, _, _ = build_step(SH_ARCH, shape, None, n_clients=SH_CLIENTS)
+        cfg = get_arch(SH_ARCH).full()
+        g = torch.Generator(device=dev).manual_seed(14)
+        params = build_model(cfg).init(g)
+        toks = torch.randint(0, cfg.vocab_size, (SH_CLIENTS, SH_T, SH_B, SH_S + 1), device=dev,
+                             generator=g)
+        batches = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
+        n = SH_CLIENTS
+        A = torch.full((n, n), 1.0 / n, device=dev)
+        tau_up = (torch.rand(n, device=dev, generator=g) < 0.8).float()
+        tau_dd = (torch.rand(n, n, device=dev, generator=g) < 0.7).float()
+        server = sgd_momentum(1.0, beta=0.9)
+
+        def run(fn, p):
+            return fn(p, server.init(p), (), batches, tau_up, tau_dd, A)
+
+        want, t_plain, _ = run_counted(wrappers, "phase 14 round without a mesh",
+                                       lambda: run(plain, params), {})
+        dparams = place(params, in_sh[0])
+        got, t_mesh, _ = run_counted(wrappers, "phase 14 round on the 1 x 1 mesh",
+                                     lambda: run(step, dparams), {})
+        check(all(isinstance(x, DTensor) and x.device_mesh == mesh for x in tree.leaves(got[0])),
+              "phase 14: a param of the sharded round is not a DTensor on the mesh")
+        pairs = list(zip(tree.leaves(got[0]), tree.leaves(want[0])))
+        same = all(torch.equal(a.to_local(), b) for a, b in pairs)
+        worst = max(float((a.to_local().float() - b.float()).abs().max()) for a, b in pairs)
+        loss_gap = abs(float(got[3]["loss"]) - float(want[3]["loss"]))
+        check(same or all(torch.allclose(a.to_local().float(), b.float(), atol=3e-5, rtol=3e-4)
+                          for a, b in pairs), f"phase 14: the sharded round is {worst} off")
+        print(f"[sharded] {SH_ARCH} full width, one per_client ColRel round ({SH_CLIENTS} clients"
+              f" x {SH_T} local steps x {SH_B} x {SH_S} tokens) on a 1 x 1 (data, model) mesh of "
+              f"an NCCL group of one, spmd_axes=('data',): {len(pairs)} params all DTensors on "
+              f"the mesh; against the round without a mesh: "
+              f"{'bitwise' if same else f'max abs err {worst:.3e}'}, loss "
+              f"{float(got[3]['loss']):.6f} vs {float(want[3]['loss']):.6f} (gap {loss_gap:.3e});"
+              f" s/round {t_mesh:.3f} on the mesh, {t_plain:.3f} without [{card}]")
+        check(loss_gap <= 1e-4, f"phase 14: loss gap {loss_gap}")
+        del got, want, dparams, params, batches
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (c) the 1 x 1 mesh's traces of phase 13's steps against its one-card traces
+    proc = host_runs["1x1"]
+    out, _ = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"1 x 1 mesh traces: rc {proc.returncode}\n{out[-3000:]}")
+    traces = json.loads(MESH_1X1_OUT.read_text())
+    for kind, one in one_card.items():
+        got = traces[kind]
+        gap = (got["peak_bytes"] - one["peak_bytes"]) / one["peak_bytes"]
+        print(f"[sharded] 1 x 1 mesh dry run of phase 13's {kind} step ({DR_ARCH} cut "
+              f"to {EST_DEPTH} layers): FLOPs {got['flops']:.6e} vs one card "
+              f"{one['flops']:.6e}; peak {got['peak_bytes'] / 1e9:.4f} vs "
+              f"{one['peak_bytes'] / 1e9:.4f} GB ({100 * gap:+.3f}%, limit "
+              f"{100 * SH_PEAK_REL:.1f}%); collectives {sum(got['collectives'].values())} B; "
+              f"trace {got['wall_s']:.1f} s in a host process of its own [{card}]")
+        check(got["flops"] == one["flops"], f"phase 14 1 x 1 {kind}: FLOPs differ")
+        check(abs(gap) <= SH_PEAK_REL, f"phase 14 1 x 1 {kind}: peak {100 * gap:+.3f}%")
+
+    # (b) the dry run on the reference's meshes
+    out_dir = ROOT / "build" / "dryrun_torch_mesh"
+    for shape in SH_DR_SHAPES:
+        proc = host_runs[shape]
+        out, _ = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"dry run {shape} --mesh both: rc {proc.returncode}\n"
+                                    f"{out[-3000:]}")
+        for tag, chips, clients in (("16x16", 256, 16), ("2x16x16", 512, 32)):
+            rec = json.loads((out_dir / f"{SH_ARCH}_{shape}_{tag}_colrel.json").read_text())
+            check(rec["chips"] == chips and rec["n_clients"] == clients
+                  and rec["hlo_flops_per_chip"] > 0, f"dry run record {shape} {tag}: {rec}")
+            m, r = rec["memory_analysis"], rec["roofline"]
+            peak = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+            coll = {k: f"{v:.4e}" for k, v in rec["collectives"].items() if v}
+            print(f"[sharded] python -m repro_torch.launch.dryrun --arch {SH_ARCH} --shape "
+                  f"{shape} --mesh both: {tag} ({chips} devices, {clients} clients, rank 0; host,"
+                  f" fake group): FLOPs/device {rec['hlo_flops_per_chip']:.6e}, unfused bytes "
+                  f"{rec['hlo_bytes_per_chip']:.6e}, peak {peak / 1e9:.3f} GB (arguments "
+                  f"{m['argument_bytes_per_shard'] / 1e9:.3f} of "
+                  f"{m['argument_bytes_global'] / 1e9:.3f}"
+                  f" whole), collectives {rec['collective_bytes_per_chip']:.6e} B {coll}, roofline "
+                  f"compute {r['compute_s']:.4f} s memory {r['memory_s']:.4f} s collective "
+                  f"{r['collective_s']:.4f} s -> {r['bottleneck']}, useful FLOP ratio "
+                  f"{rec['useful_flop_ratio']:.4f}; FLOPs by op "
+                  f"{ {k: f'{v:.4e}' for k, v in rec['flops_by_op'].items()} }; build "
+                  f"{rec['lower_s']} s, trace {rec['compile_s']} s")
+    print(f"[sharded] phase 14 wall {time.perf_counter() - t14:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

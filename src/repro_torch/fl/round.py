@@ -50,6 +50,8 @@ from repro_torch import strategies as strategy_registry
 from repro_torch import tree
 from repro_torch.core import flatten
 from repro_torch.core.aggregation import Aggregation
+from repro_torch.dist.constraints import constrain_grads, current_mesh
+from repro_torch.dist.layout import contiguous_strides, pin_like, settle
 from repro_torch.kernels import launch_counts
 from repro_torch.optim import Optimizer, apply_updates, global_norm
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext
@@ -83,8 +85,10 @@ class RoundConfig:
     # accepted for the reference's signature and read by nothing in the
     # round, as in the reference, where no line reads it either
     use_flash: bool = False
-    # the reference pins the vmapped client axis to these mesh axes; one
-    # card has no mesh, so it is accepted and inert
+    # under a mesh (``with use_mesh(mesh):``) the client axis maps onto
+    # these mesh axes: each rank runs the clients of its coordinate on them
+    # (the reference's vmap spmd_axis_name); inert outside a mesh, where the
+    # strategies' context does not carry it
     spmd_axes: Optional[tuple] = None
     # the reference unrolls its local-step and client scans for its dry-run
     # cost probes; the port's loops are eager Python, so it is inert
@@ -111,11 +115,14 @@ class RoundConfig:
         """The configured strategy instance (deprecated spellings warn)."""
         return strategy_registry.resolve(self.aggregation, fused_kernel=self.use_fused_kernel)
 
-    def execution_context(self) -> ExecutionContext:
+    def execution_context(self, on_mesh: bool = False) -> ExecutionContext:
+        """The strategies' context; it carries ``spmd_axes`` only for a
+        round that runs its clients over a mesh (``on_mesh``)."""
         return ExecutionContext(
             n_clients=self.n_clients,
             flat_dtype=getattr(torch, self.flat_dtype),
             fused_block_d=self.fused_block_d,
+            spmd_axes=self.spmd_axes if on_mesh else None,
             segment_d=self.segment_d,
         )
 
@@ -132,6 +139,9 @@ def _local_sgd(loss_fn: Callable, client_opt: Optimizer, params: Params,
         leaves, treedef = tree.flatten(p)
         loss, _ = loss_fn(p, {k: v[t] for k, v in batches.items()})
         grads = tree.unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
+        if current_mesh() is not None:
+            # a replicated param's pending partial gradient summed
+            grads = tree.map(pin_like, grads, p)
         upd, ostate = client_opt.update(grads, ostate, p)
         with torch.no_grad():
             p = apply_updates(p, upd)
@@ -140,8 +150,131 @@ def _local_sgd(loss_fn: Callable, client_opt: Optimizer, params: Params,
     return delta, torch.mean(torch.stack(losses))
 
 
+def _local(x):
+    """A DTensor's local tensor; a plain tensor as it is."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+class ClientMesh:
+    """The clients of a round on a mesh whose ``axes`` enumerate them.
+
+    The ``n`` clients split evenly over the client axes' coordinates, the
+    outer axis first (the reference's vmap ``spmd_axis_name``): this rank
+    runs clients ``[lo, hi)`` on the model sub-mesh (the mesh's other dims;
+    plain tensors when there are none), and its per-client results become
+    rows of ``(n, ...)`` DTensors sharded over the client axes."""
+
+    def __init__(self, mesh, axes: Tuple[str, ...], n: int):
+        names = tuple(mesh.mesh_dim_names)
+        missing = [a for a in axes if a not in names]
+        if missing:
+            raise ValueError(f"spmd_axes {axes} name axes {missing} the mesh {names} lacks")
+        self.mesh, self.n = mesh, int(n)
+        self.cdims = tuple(i for i, a in enumerate(names) if a in axes)
+        rest = tuple(a for a in names if a not in axes)
+        self.sub = (mesh[rest[0]] if len(rest) == 1 else mesh[rest]) if rest else None
+        coord = mesh.get_coordinate()
+        c, nc = 0, 1
+        for i in self.cdims:
+            c = c * mesh.size(i) + coord[i]
+            nc *= mesh.size(i)
+        if self.n % nc:
+            raise ValueError(f"{self.n} clients do not split over {nc} client coordinates")
+        k = self.n // nc
+        self.lo, self.hi = c * k, (c + 1) * k
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's client rows of a ``(n, ...)`` value: the local shard
+        of a DTensor sharded on dim 0 over the client axes alone, else a
+        slice of the whole value."""
+        if hasattr(x, "to_local"):
+            pl = x.placements
+            if all(pl[i].is_shard(0) if i in self.cdims else pl[i].is_replicate()
+                   for i in range(len(pl))):
+                return x.to_local()
+            x = x.full_tensor()
+        return x[self.lo:self.hi]
+
+    def to_sub(self, p, *, grad: bool = False):
+        """A param replicated over the client axes, on the model sub-mesh.
+        With ``grad`` the gradient that flows back is a partial sum over the
+        client axes (each rank's clients contribute theirs)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        if hasattr(p, "to_local"):
+            pl = list(p.placements)
+            if any(not pl[i].is_replicate() for i in self.cdims):
+                pl = [Replicate() if i in self.cdims else q for i, q in enumerate(pl)]
+                p = p.redistribute(self.mesh, pl)
+            gpl = [Partial() if i in self.cdims else q for i, q in enumerate(pl)]
+            local = p.to_local(grad_placements=gpl) if grad else p.to_local()
+            sub_pl = [q for i, q in enumerate(pl) if i not in self.cdims]
+        else:
+            local, sub_pl = p, [Replicate()] * (self.mesh.ndim - len(self.cdims))
+        if self.sub is None:
+            return local
+        return DTensor.from_local(local, self.sub, sub_pl, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+
+    def from_rows(self, local: torch.Tensor, shape: Tuple[int, ...]):
+        """The ``(n, *shape)`` DTensor whose rows ``[lo, hi)`` are ``local``
+        (this rank's per-client values), sharded on dim 0 over the client
+        axes and replicated over the other mesh dims."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        placements = [Shard(0) if i in self.cdims else Replicate() for i in range(self.mesh.ndim)]
+        shape = (self.n, *shape)
+        return DTensor.from_local(local, self.mesh, placements, run_check=False, shape=shape,
+                                  stride=contiguous_strides(shape))
+
+
+def _sharded_clients(cm: ClientMesh, loss_fn: Callable, client_opt: Optimizer, params: Params,
+                     batches: Dict[str, torch.Tensor]):
+    """``per_client`` on a mesh: this rank's clients' T local steps each, on
+    the model sub-mesh.  Each delta is gathered whole and written, flat,
+    into its row of this rank's block of the stack.  Returns the tree of
+    ``(n, d_i)`` delta leaves and the ``(n,)`` loss vector, DTensors sharded
+    over the client axes (flat leaves: DTensor cannot split a dim of a
+    contraction's result that it sharded unevenly, so the round reshapes
+    the aggregate itself, :func:`_unflat`)."""
+    sub_params = tree.map(lambda p: cm.to_sub(p.detach()), params)
+    local_batches = {k: cm.rows(v) for k, v in batches.items()}
+    k = cm.hi - cm.lo
+    stacked, losses = None, []
+    for i in range(k):
+        delta, loss = _local_sgd(loss_fn, client_opt, sub_params,
+                                 {key: v[i] for key, v in local_batches.items()})
+        delta = tree.map(_whole, delta)
+        if stacked is None:
+            stacked = tree.map(lambda d: d.new_empty((k, d.numel())), delta)
+        tree.map(lambda s_, d: s_[i].copy_(d.reshape(-1)), stacked, delta)
+        del delta
+        losses.append(_whole(loss))
+    return (tree.map(lambda s_: cm.from_rows(s_, (s_.shape[1],)), stacked),
+            cm.from_rows(torch.stack(losses), ()))
+
+
+def _whole(x):
+    """A DTensor's whole value as a plain tensor; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _unflat(flat: Params, like: Params) -> Params:
+    """The round's aggregate of flat ``(d_i,)`` leaves, replicated and
+    reshaped to the leaves of ``like``."""
+    def one(g, p):
+        if hasattr(g, "placements"):
+            from torch.distributed.tensor import Replicate
+
+            g = g.redistribute(g.device_mesh, [Replicate()] * g.device_mesh.ndim)
+        return g.reshape(p.shape)
+
+    return tree.map(one, flat, like)
+
+
 def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
-                  rc: RoundConfig, telemetry: bool = False):
+                  rc: RoundConfig, telemetry: bool = False,
+                  grad_shardings: Optional[Params] = None):
     """Returns ``round(params, server_state, agg_state, batches, tau_up,
     tau_dd, A) -> (params, server_state, agg_state, metrics)``.
 
@@ -156,6 +289,17 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
     collapse, so a stateful or non-collapsible strategy raises
     ``ValueError`` here: its state would freeze at ``init_state``.
 
+    Inside ``use_mesh(mesh)`` the round runs on DTensors: the params (and
+    the server state) laid out by the sharding rules, plain tensors read as
+    replicated.  With ``rc.spmd_axes`` the ``per_client`` and
+    ``weighted_grad`` modes run each rank's clients (its coordinate on those
+    mesh axes) on the model sub-mesh, their update stack or losses DTensors
+    over the client axes (the reference's vmap ``spmd_axis_name``);
+    ``grad_shardings`` (a tree of
+    :class:`~repro_torch.dist.NamedSharding`) pins the gradients of the
+    ``weighted_*`` modes.  The carry comes back in the layout it came in
+    and the metrics whole.
+
     ``telemetry=True`` returns the instrumented round, ``round(params,
     server_state, agg_state, batches, tau_up, tau_dd, A, streak) ->
     (params, server_state, agg_state, streak, metrics)``, whose metrics
@@ -165,7 +309,7 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
     the scalar metrics are bitwise those of the plain round.
     """
     strategy = rc.resolve_strategy()
-    ctx = rc.execution_context()
+    ctx, mesh_ctx = rc.execution_context(), rc.execution_context(on_mesh=True)
     if rc.mode != "per_client" and (strategy.stateful or not strategy.scalar_collapsible):
         raise ValueError(
             f"strategy {strategy.name!r} needs the per_client mode: only it materializes "
@@ -179,15 +323,48 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
         p = tree.map(lambda x: x.detach().requires_grad_(), params)
         leaves, treedef = tree.flatten(p)
         total, losses = weighted_loss(p)
-        grads = tree.unflatten(treedef, list(torch.autograd.grad(total, leaves)))
+        # on a mesh the total is summed over the ranks first, so that the
+        # backward starts from one replicated seed
+        grads = tree.unflatten(treedef, list(torch.autograd.grad(settle(total), leaves)))
+        grads = tree.map(pin_like, constrain_grads(grads, grad_shardings), params)
         upd, _ = client_opt.update(grads, client_opt.init(params), params)
         return tree.map(lambda u: u.float(), upd), losses.detach()
 
     def round_fn(params, server_state, agg_state, batches, tau_up, tau_dd, A):
+        mesh = current_mesh()
+        if mesh is None:
+            return body(params, server_state, agg_state, batches, tau_up, tau_dd, A, None)
+        # on a mesh: plain tensors (the taus, a step counter) meet DTensors
+        # as replicated ones, a vocabulary-sharded loss is computed
+        # vocab-parallel (forward and backward), and the carry leaves in the
+        # layout it came in
+        from torch.distributed.tensor.experimental import implicit_replication
+        from torch.distributed.tensor.parallel import loss_parallel
+
+        cm = (ClientMesh(mesh, tuple(rc.spmd_axes), rc.n_clients)
+              if rc.spmd_axes and rc.mode in ("per_client", "weighted_grad") else None)
+        with implicit_replication(), loss_parallel():
+            new_p, new_s, new_a, metrics = body(params, server_state, agg_state, batches,
+                                                tau_up, tau_dd, A, cm)
+            return (tree.map(pin_like, new_p, params), tree.map(pin_like, new_s, server_state),
+                    tree.map(pin_like, new_a, agg_state),
+                    {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                     for k, v in metrics.items()})
+
+    def body(params, server_state, agg_state, batches, tau_up, tau_dd, A, cm):
         # realized scalar weights (for ColRel the exact collapse
         # w_j = sum_i tau_i tau_ji alpha_ij / n), logged as weight_sum
         w = strategy.weights(tau_up, tau_dd, A)
-        if rc.mode == "per_client":
+        if rc.mode == "per_client" and cm is not None:
+            # the clients of this rank's coordinate, their deltas rows of
+            # an (n, ...) stack sharded over the client axes
+            stacked, losses = _sharded_clients(cm, loss_fn, client_opt, params, batches)
+            with torch.no_grad():
+                gdelta, agg_state = strategy.aggregate_tree(
+                    stacked, tau_up, tau_dd, A, agg_state, mesh_ctx)
+                gdelta = _unflat(gdelta, params)
+            mean_loss = torch.mean(losses)
+        elif rc.mode == "per_client":
             # each client's delta goes into its row of the update stack as
             # it is made, so that at most one client's delta is held apart
             # from the stack (stacking a list of them held two stacks)
@@ -217,6 +394,20 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
                     gdelta = tree.map(lambda a, d: a + w[i] * d, gdelta, delta)
                 loss_sum = loss_sum + loss
             mean_loss = loss_sum / rc.n_clients
+        elif rc.mode == "weighted_grad" and cm is not None:
+            # on a mesh: this rank's clients on the model sub-mesh, their
+            # losses rows of an (n,) vector over the client axes; the
+            # params' gradient comes back as a sum over the ranks
+            def weighted_loss(p):
+                p_sub = tree.map(lambda x: cm.to_sub(x, grad=True), p)
+                local = {k: cm.rows(v) for k, v in batches.items()}
+                ls = [loss_fn(p_sub, {k: v[i] for k, v in local.items()})[0]
+                      for i in range(cm.hi - cm.lo)]
+                losses = cm.from_rows(torch.stack([_local(x) for x in ls]), ())
+                return torch.sum(w * losses), losses
+
+            gdelta, losses = weighted_backward(params, weighted_loss)
+            mean_loss = torch.mean(losses)
         elif rc.mode == "weighted_grad":
             # T = 1: one backward pass over every client's batch with
             # per-client loss weights (the clients in a loop building one
@@ -570,4 +761,5 @@ def make_async_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_op
     buffer are static buffers of the captured round, and the staleness
     metrics come back ``(K,)`` like the others."""
     return ScanRound(make_async_round_fn(loss_fn, client_opt, server_opt, rc,
-                                         telemetry=telemetry), channel_sampler)
+                                         telemetry=telemetry),
+                     channel_sampler)

@@ -3,9 +3,10 @@
 The counterpart of ``repro.launch.specs``.  The reference lowers against
 ``jax.ShapeDtypeStruct``s; here the stand-ins are tensors on
 ``torch.device("meta")``: shape and dtype, nothing allocated, whatever the
-model's size.  There is no mesh: the caller gives ``n_clients``.
+model's size.  The client count is the mesh's (its client axes, see
+:func:`repro_torch.dist.n_clients`), or an int for one device.
 
-``input_specs(arch_id, shape_name, n_clients)`` returns a dict:
+``input_specs(arch_id, shape_name, mesh)`` returns a dict:
 
 * train: ``params``, ``server_state``, ``batches``, ``tau_up``, ``tau_dd``,
   ``A`` (the FL round);
@@ -21,6 +22,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, get_arch
+from repro_torch.dist.mesh import n_clients as mesh_clients
 from repro_torch.models import ModelConfig, build
 from repro_torch.optim import sgd_momentum
 
@@ -76,18 +78,20 @@ def _train_batch_spec(cfg: ModelConfig, n_clients: int, shape: InputShape,
     return spec
 
 
-def input_specs(arch_id: str, shape_name: Union[str, InputShape], n_clients: int,
+def input_specs(arch_id: str, shape_name: Union[str, InputShape], mesh,
                 cfg: Optional[ModelConfig] = None,
                 fl_mode: Optional[str] = None) -> Dict[str, Any]:
     """All inputs of one (arch x input-shape) combination, as meta tensors,
     under ``kind`` with the ``cfg`` they were made for.  ``shape_name`` is
-    a name of ``INPUT_SHAPES`` or an :class:`InputShape` of its own."""
+    a name of ``INPUT_SHAPES`` or an :class:`InputShape` of its own;
+    ``mesh`` is a mesh (its client axes give the client count) or the
+    client count itself."""
     if cfg is None:
         cfg = get_arch(arch_id).full()
     fl_mode = fl_mode or cfg.fl_mode
     bundle = build(cfg)
     shape = shape_name if isinstance(shape_name, InputShape) else INPUT_SHAPES[shape_name]
-    C = int(n_clients)
+    C = int(mesh) if isinstance(mesh, int) else mesh_clients(mesh)
 
     if shape.kind == "train":
         pspec = params_spec(bundle)

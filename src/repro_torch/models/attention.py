@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.layout import (fold_ready, grad_as, merge_ready, pin_like, shard_ways,
+                                      write_at)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ModelConfig, Params, apply_rope, dense_init, rms_head_norm
 
@@ -83,6 +85,10 @@ def _sdpa(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
     B, T, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
+    # on a mesh the batched matmuls fold (batch, heads): one of them sharded
+    q, k, v = (fold_ready(t, (0, 2)) for t in (q, k, v))
+    if shard_ways(q, 2) > 1:
+        return _sdpa_heads_first(q, k, v, mask, softcap)
     qf = q.float().reshape(B, T, KV, G, hd)
     logits = torch.einsum("btkgh,bskh->bkgts", qf, k.float()) / math.sqrt(hd)
     if softcap is not None:
@@ -91,7 +97,37 @@ def _sdpa(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
         logits = logits.masked_fill(~mask, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
-    return out.reshape(B, T, H, hd).to(q.dtype)
+    # on a mesh the gradient comes back sharded over the heads from the
+    # output projection: laid out as q before the (KV, G) split
+    return grad_as(out.reshape(B, T, H, hd).to(q.dtype), q)
+
+
+def _sdpa_heads_first(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
+    """:func:`_sdpa` for a DTensor ``q`` sharded over its heads: every query
+    head gets its own copy of its key and value head, laid out as ``q``,
+    and the heads lead every batched matmul (DTensor folds a sharded dim
+    into a matmul's batch only when it is the first), so that each device
+    attends its own heads."""
+    B, T, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k, v = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    # the gradients leave contiguous: DTensor's decompositions view the
+    # local tensors they are given, and a permute's gradient is strided
+    q, k, v = (grad_as(t) for t in (q, pin_like(k, q), pin_like(v, q)))
+
+    def heads_first(t, *order):
+        return t.float().permute(*order).contiguous()
+
+    logits = torch.matmul(heads_first(q, 2, 0, 1, 3),
+                          heads_first(k, 2, 0, 3, 1)) / math.sqrt(hd)  # (H, B, T, S)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.matmul(w, heads_first(v, 2, 0, 1, 3))  # (H, B, T, hd)
+    return out.permute(1, 2, 0, 3).contiguous().to(q.dtype)
 
 
 def _chunked_causal_sdpa(q, k, v, window, softcap: Optional[float], chunk: int) -> torch.Tensor:
@@ -147,15 +183,18 @@ def attention(
     """Full-sequence attention; ``kv_source`` switches to cross-attention
     (no causal mask).  The branches are the reference's, in its order."""
     B, T, _ = x.shape
+    x = merge_ready(x)
+    kv_source = merge_ready(kv_source) if kv_source is not None else None
+    wq, wk, wv = (merge_ready(params[n], 2, 1) for n in ("wq", "wk", "wv"))
     if positions is None:
         positions = _positions(B, T, x.device)
-    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
+    q = torch.einsum("btd,dhk->bthk", x, wq)
     src = x if kv_source is None else kv_source
     S = src.shape[1]
     if kv_positions is None:
         kv_positions = _positions(B, S, x.device)
-    k = torch.einsum("bsd,dhk->bshk", src, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", src, wk)
+    v = torch.einsum("bsd,dhk->bshk", src, wv)
     if cfg.qk_norm:
         q = rms_head_norm(q, params["q_norm"])
         k = rms_head_norm(k, params["k_norm"])
@@ -172,7 +211,7 @@ def attention(
     else:
         mask = causal_mask(T, S, window=window, device=x.device) if is_self_causal else None
         out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
-    return torch.einsum("bthk,hkd->btd", out, params["wo"])
+    return torch.einsum("bthk,hkd->btd", merge_ready(out), merge_ready(params["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -197,9 +236,10 @@ def decode_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, cache: P
     pos = int(pos)
     if not 0 <= pos < S:
         raise IndexError(f"decode position {pos} outside the cache's {S} slots")
-    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
-    k_new = torch.einsum("btd,dhk->bthk", x, params["wk"])
-    v_new = torch.einsum("btd,dhk->bthk", x, params["wv"])
+    wq, wk, wv = (merge_ready(params[n], 2, 1) for n in ("wq", "wk", "wv"))
+    q = torch.einsum("btd,dhk->bthk", x, wq)
+    k_new = torch.einsum("btd,dhk->bthk", x, wk)
+    v_new = torch.einsum("btd,dhk->bthk", x, wv)
     if cfg.qk_norm:
         q = rms_head_norm(q, params["q_norm"])
         k_new = rms_head_norm(k_new, params["k_norm"])
@@ -207,13 +247,13 @@ def decode_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, cache: P
     q = apply_rope(q, posb, cfg.rope_theta)
     k_new = apply_rope(k_new, posb, cfg.rope_theta)
 
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    write_at(cache["k"], 1, pos, k_new[:, 0].to(cache["k"].dtype))
+    write_at(cache["v"], 1, pos, v_new[:, 0].to(cache["v"].dtype))
 
     idx = torch.arange(S, device=x.device)
     valid = idx <= pos
     if window is not None:
         valid &= (pos - idx) < window
     out = _sdpa(q, cache["k"], cache["v"], valid[None, :], cfg.attn_logit_softcap)
-    y = torch.einsum("bthk,hkd->btd", out, params["wo"])
+    y = torch.einsum("bthk,hkd->btd", merge_ready(out), merge_ready(params["wo"]))
     return y, cache

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree
+from repro_torch.dist.constraints import current_mesh
+from repro_torch.dist.layout import gather_clients, settle, vocab_sharded
 
 __all__ = [
     "Params",
@@ -163,18 +165,28 @@ def unstack_layers(stacked: Params) -> List[Params]:
     return [tree.unflatten(treedef, [u[i] for u in per_leaf]) for i in range(len(per_leaf[0]))]
 
 
+def gathered(layer: Params) -> Params:
+    """A layer's params with their fsdp shards gathered, one layer at a time
+    at its use (:func:`repro_torch.dist.layout.gather_clients`); off a mesh
+    the layer itself, with no walk of its tree (the decode step's host time
+    is ~2 ms a layer, and the walk took ~50 us)."""
+    if current_mesh() is None:
+        return layer
+    return tree.map(gather_clients, layer)
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """The rows of ``params["embed"]`` for ``tokens``.  ``F.embedding``'s
     backward sums the gradients of repeated tokens in a fixed order on the
     CPU and on CUDA; indexing's (``embed[tokens]``, an accumulating
     ``index_put_``) does not on several CPU threads, which made two runs of
     the same training differ in the last bit."""
-    return F.embedding(tokens, params["embed"])
+    return settle(F.embedding(tokens, gather_clients(params["embed"])))
 
 
 def lm_head(cfg: "ModelConfig", params: Params) -> torch.Tensor:
     """The (d_model, V) output projection: the embedding's transpose when tied."""
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return gather_clients(params["embed"].T if cfg.tie_embeddings else params["lm_head"])
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +260,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-example CE; logits (..., V), labels (...) integer.  f32 inside:
     logsumexp minus the gold logit."""
-    logits = logits.float()
+    # on a mesh a pending sum over the logits is reduce-scattered over the
+    # batch first (the gather below takes none)
+    logits = settle(logits.float(), 0)
+    if vocab_sharded(logits):
+        # logits sharded over the vocabulary (DTensor): the same logsumexp
+        # minus the gold logit as one cross-entropy op, which DTensor's
+        # loss_parallel (entered by the round on a mesh, around the forward
+        # and the backward) computes with three all-reduces of the (...,)
+        # rows instead of gathering the logits
+        V = logits.shape[-1]
+        ce = F.cross_entropy(logits.reshape(-1, V), labels.long().reshape(-1), reduction="none")
+        return ce.reshape(labels.shape)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
     return logz - gold

@@ -4,9 +4,9 @@ The counterpart of ``repro.models.encdec``.  The modality frontend is a
 stub, as in the reference: the encoder takes precomputed frame embeddings
 of shape (B, frames, d_model).  A bidirectional encoder and a causal
 decoder with cross-attention; the layer stacks carry the reference's
-leading layer axis and the models loop over it in Python.  The
-reference's ``constrain_act`` sharding hints are no-ops on one device and
-are left out.
+leading layer axis and the models loop over it in Python.  Each encoder
+and decoder layer's input passes the ``constrain_act`` hook
+(:mod:`repro_torch.dist`), the identity outside a mesh.
 
 :func:`decode_step` writes the self-attention cache in place (see
 :func:`repro_torch.models.attention.decode_attention`) and recomputes the
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.constraints import constrain_act
+from repro_torch.dist.layout import gather_clients, merge_ready
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
@@ -26,6 +28,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     embed_tokens,
+    gathered,
     init_norm,
     layer_at,
     masked_lm_loss,
@@ -76,13 +79,17 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
     The encoder's attention is bidirectional: ``use_flash`` does not
     apply to it (kept for the reference's signature)."""
     del use_flash
-    x = frames.to(cfg.tdtype) @ params["frontend_proj"]
-    for lp in unstack_layers(params["encoder"]):
-        # (the reference's constrain_act sharding hint: a no-op on one device)
-        x = x + attn_mod.attention(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
-                                   causal=False, use_flash=False)
-        x = x + mlp_mod.apply_mlp(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
-    return apply_norm(cfg, params["enc_norm"], x)
+    x = frames.to(cfg.tdtype) @ gather_clients(params["frontend_proj"])
+    for lp in map(gathered, unstack_layers(params["encoder"])):
+        # on a mesh the residual stream and each branch's output pinned to
+        # act_spec (see repro_torch.models.transformer._block)
+        x = constrain_act(cfg, x)
+        x = x + constrain_act(cfg, attn_mod.attention(cfg, lp["attn"],
+                                                      apply_norm(cfg, lp["ln1"], x),
+                                                      causal=False, use_flash=False))
+        x = x + constrain_act(cfg, mlp_mod.apply_mlp(cfg, lp["ffn"],
+                                                     apply_norm(cfg, lp["ln2"], x)))
+    return apply_norm(cfg, gathered(params["enc_norm"]), x)
 
 
 def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor, memory: torch.Tensor,
@@ -91,15 +98,18 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor, memory:
     logits (B, T, V); the causal self-attention takes the flash kernel
     under ``use_flash``."""
     x = embed_tokens(params, tokens)
-    for lp in unstack_layers(params["decoder"]):
-        # (the reference's constrain_act sharding hint: a no-op on one device)
-        x = x + attn_mod.attention(cfg, lp["self"], apply_norm(cfg, lp["ln1"], x),
-                                   use_flash=use_flash)
-        x = x + attn_mod.attention(cfg, lp["cross"], apply_norm(cfg, lp["ln_x"], x),
-                                   kv_source=memory, causal=False)
-        x = x + mlp_mod.apply_mlp(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
-    x = apply_norm(cfg, params["final_norm"], x)
-    return x @ params["lm_head"]
+    for lp in map(gathered, unstack_layers(params["decoder"])):
+        x = constrain_act(cfg, x)
+        x = x + constrain_act(cfg, attn_mod.attention(cfg, lp["self"],
+                                                      apply_norm(cfg, lp["ln1"], x),
+                                                      use_flash=use_flash))
+        x = x + constrain_act(cfg, attn_mod.attention(cfg, lp["cross"],
+                                                      apply_norm(cfg, lp["ln_x"], x),
+                                                      kv_source=memory, causal=False))
+        x = x + constrain_act(cfg, mlp_mod.apply_mlp(cfg, lp["ffn"],
+                                                     apply_norm(cfg, lp["ln2"], x)))
+    x = merge_ready(apply_norm(cfg, gathered(params["final_norm"]), x))
+    return x @ gather_clients(params["lm_head"])
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, use_flash: bool = False):
@@ -131,13 +141,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
     B = token.shape[0]
     qpos = torch.full((B, 1), int(pos), device=x.device)
     for i in range(cfg.n_layers):
-        lp = layer_at(params["decoder"], i)
+        lp = gathered(layer_at(params["decoder"], i))
         c = layer_at(cache["kv"], i)  # views: the writes land in the stacked cache
         h, _ = attn_mod.decode_attention(cfg, lp["self"], apply_norm(cfg, lp["ln1"], x), c, pos)
         x = x + h
         x = x + attn_mod.attention(cfg, lp["cross"], apply_norm(cfg, lp["ln_x"], x),
                                    kv_source=memory, causal=False, positions=qpos)
         x = x + mlp_mod.apply_mlp(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = (x @ params["lm_head"])[:, 0]
+    x = apply_norm(cfg, gathered(params["final_norm"]), x)
+    logits = (x @ gather_clients(params["lm_head"]))[:, 0]
     return logits, cache

@@ -7,8 +7,9 @@ layer (= 2: the odd positions) carries a MoE MLP
 (:mod:`repro_torch.models.moe`), the others a dense SwiGLU; ``moe_every=0``
 gives every layer the dense MLP.  The params keep the reference's tree,
 with a leading period axis on every leaf; the model loops over the
-periods in Python (the reference scans them), and the reference's
-``constrain_act`` sharding hint, a no-op on one device, is left out.
+periods in Python (the reference scans them).  Each period's input and
+each mixer's and MLP's output pass the ``constrain_act`` hook
+(:mod:`repro_torch.dist`), the identity outside a mesh.
 
 Under ``use_flash`` the forward's mixers go through the hand-written
 kernels: the attention layer through flash attention, the Mamba layers
@@ -23,6 +24,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree
+from repro_torch.dist.constraints import constrain_act
+from repro_torch.dist.layout import merge_ready
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
@@ -34,6 +37,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     embed_tokens,
+    gathered,
     init_norm,
     layer_at,
     lm_head,
@@ -107,6 +111,7 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, moe: bool):
 
 
 def _period_fwd(cfg: ModelConfig, pp: Params, x: torch.Tensor, use_flash: bool):
+    x = constrain_act(cfg, x)
     period, attn_pos, _, moe_pos = _pattern(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(period):
@@ -115,10 +120,12 @@ def _period_fwd(cfg: ModelConfig, pp: Params, x: torch.Tensor, use_flash: bool):
             h = attn_mod.attention(cfg, pp["mixers"][f"l{j}"], xn, use_flash=use_flash)
         else:
             h, _ = mamba_mod.mamba_forward(cfg, pp["mixers"][f"l{j}"], xn, ssd_kernel=use_flash)
-        x = x + h
+        # on a mesh each branch's output pinned to act_spec (see
+        # repro_torch.models.transformer._block)
+        x = x + constrain_act(cfg, h)
         h, a = _ffn(cfg, pp["ffns"][f"l{j}"], apply_norm(cfg, pp["norms2"][f"l{j}"], x),
                     j in moe_pos)
-        x = x + h
+        x = x + constrain_act(cfg, h)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -131,10 +138,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, use_flash
     plain versions (the reference's attention path, ``ssd_scan_plain``)."""
     x = embed_tokens(params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for pp in unstack_layers(params["periods"]):
+    for pp in map(gathered, unstack_layers(params["periods"])):
         x, a = _period_fwd(cfg, pp, x, use_flash)
         aux = aux + a
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = merge_ready(apply_norm(cfg, gathered(params["final_norm"]), x))
     return x @ lm_head(cfg, params), aux
 
 
@@ -168,7 +175,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
     period, attn_pos, mamba_pos, moe_pos = _pattern(cfg)
     x = embed_tokens(params, token)
     for i in range(n_periods(cfg)):
-        pp, kv = layer_at(params["periods"], i), layer_at(cache["kv"], i)  # views of the cache
+        # kv: views of the cache
+        pp, kv = gathered(layer_at(params["periods"], i)), layer_at(cache["kv"], i)
         for j in range(period):
             xn = apply_norm(cfg, pp["norms1"][f"l{j}"], x)
             if j in attn_pos:
@@ -182,5 +190,5 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
             h, _ = _ffn(cfg, pp["ffns"][f"l{j}"], apply_norm(cfg, pp["norms2"][f"l{j}"], x),
                         j in moe_pos)
             x = x + h
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = apply_norm(cfg, gathered(params["final_norm"]), x)
     return (x @ lm_head(cfg, params))[:, 0], cache

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.layout import grad_as, merge_ready, settle
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ssd_scan as ssd_scan_mod
 from repro_torch.models import ssm
@@ -97,6 +98,7 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     any device (the hybrid's forward without ``use_flash``)."""
     B, T, d = x.shape
     d_in, H, P, N, conv_ch = _dims(cfg)
+    x = merge_ready(x)
     h = x @ p["w_in"]
     z, xBC_pre, dt = _split(cfg, h)
     xBC = F.silu(_causal_conv(xBC_pre, p["conv_w"], p["conv_b"]))
@@ -106,6 +108,10 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     loga = -torch.exp(p["A_log"]) * dt
     v_in = v * dt[..., None].to(v.dtype)
     chunk = min(cfg.ssm_chunk, T)
+    # on a mesh the scan's operands are sharded on the batch alone, no sum
+    # pending (its batched matmuls fold (batch, heads, chunks)), and its
+    # output's gradient comes back laid out as the output
+    Bc, Cc, v_in, loga = (settle(merge_ready(t, t.ndim)) for t in (Bc, Cc, v_in, loga))
     if state is None:
         # The reference runs ssm.ssd_chunked here (its mamba.py:98) and drops
         # the final state; from a zero state that is ssd_scan's function.  Its
@@ -118,7 +124,7 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     else:
         k, q = (t[:, :, None].expand(B, T, H, N) for t in (Bc, Cc))
         y, ssm_out = ssm.ssd_chunked(q, k, v_in, loga, state=state["ssm"], chunk=chunk)
-    y = y + v * p["D"][None, None, :, None].to(v.dtype)
+    y = grad_as(y, y) + v * p["D"][None, None, :, None].to(v.dtype)
     y = _gated_norm(y.reshape(B, T, d_in), z, p["norm_scale"])
     out = y @ p["w_out"]
     new_state = None

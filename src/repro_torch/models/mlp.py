@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.layout import merge_ready
 from repro_torch.models.common import ModelConfig, Params, dense_init
 
 __all__ = ["init_mlp", "apply_mlp"]
@@ -28,6 +29,7 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: Optional[int] = None)
 
 
 def apply_mlp(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    x = merge_ready(x)
     if cfg.mlp == "swiglu":
         g = F.silu(x @ params["wg"])
         return (g * (x @ params["wu"])) @ params["wd"]

@@ -17,8 +17,10 @@ to run:
 * the combine adds each token's K contributions, which are contiguous, as
   a sum over K of an ``(N, K, d)`` view, not with atomics.
 
-The reference's sharding constraints (``act_spec``, ``moe_buf_spec``) have
-nothing to do on one device and are left out.
+On a mesh the reference's sharding constraints pin the flattened
+``(N, ...)`` token tensors to ``act_spec``'s batch (or sequence) axis and
+the ``(E, C, d)`` dispatch buffers to ``moe_buf_spec``
+(:func:`repro_torch.dist.constrain`, the identity outside a mesh).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.constraints import constrain
+from repro_torch.dist.layout import merge_ready, split_ready
 from repro_torch.models.common import ModelConfig, Params, dense_init
 
 __all__ = ["init_moe", "capacity", "Routing", "route", "apply_moe"]
@@ -88,27 +92,37 @@ def apply_moe(cfg: ModelConfig, params: Params, x: torch.Tensor) -> Tuple[torch.
     B, T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     N = B * T
-    xt = x.reshape(N, d)
+
+    def tok(t):
+        # keep the flattened (N, ...) token tensors sharded after the (B, T)
+        # merge, which otherwise drops act_spec's batch sharding
+        ax = cfg.act_spec and (cfg.act_spec[0] or cfg.act_spec[1])
+        return constrain(t, (ax,) + (None,) * (t.ndim - 1)) if ax else t
+
+    def buf_spec(b):
+        return constrain(b, cfg.moe_buf_spec) if cfg.moe_buf_spec else b
+
+    xt = tok(merge_ready(x).reshape(N, d))
     r = route(cfg, params, xt)
     C = r.capacity
 
     # dispatch: the kept slots are distinct; the dropped ones all land in
     # the extra row E*C, which is cut off
-    buf = torch.zeros(E * C + 1, d, dtype=x.dtype, device=x.device)
+    buf = xt.new_zeros(E * C + 1, d)
     buf[r.slot] = xt.repeat_interleave(K, dim=0)
-    buf = buf[:E * C].view(E, C, d)
+    buf = buf_spec(buf[:E * C].view(E, C, d))
 
     # the experts: static shapes
     h = F.silu(torch.bmm(buf, params["wg"])) * torch.bmm(buf, params["wu"])
-    out = torch.bmm(h, params["wd"]).view(E * C, d)
+    out = merge_ready(buf_spec(torch.bmm(h, params["wd"]))).view(E * C, d)
 
     # combine: token i's K contributions are rows i*K .. i*K + K - 1
-    contrib = out[torch.clamp(r.slot, max=E * C - 1)]
+    contrib = tok(out[torch.clamp(r.slot, max=E * C - 1)])
     contrib = torch.where(r.keep[:, None], contrib, 0.0)
     contrib = contrib * r.gate.reshape(-1)[:, None].to(x.dtype)
-    y = contrib.view(N, K, d).sum(1)
+    y = tok(contrib.view(N, K, d).sum(1))
 
     # load-balance aux: f_e the fraction of the assignments, P_e the mean probability
     frac = F.one_hot(r.expert, E).float().sum(1).mean(0) / K
     aux = E * torch.sum(frac * r.probs.mean(0))
-    return y.reshape(B, T, d), aux.float()
+    return split_ready(y, 0, B).reshape(B, T, d), aux.float()

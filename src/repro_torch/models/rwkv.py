@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.layout import merge_ready
 from repro_torch.models import ssm
 from repro_torch.models.common import ModelConfig, Params, dense_init
 
@@ -87,16 +88,18 @@ def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     are new, so the caller may copy them into the state it passed."""
     B, T, d = x.shape
     _, H, Dk = _dims(cfg)
+    x = merge_ready(x)
     xx = _shift(x, None if state is None else state["shift"])
     mu = p["mu"]
     delta = xx - x
-    mr, mk, mv, mw, mg = (x + delta * mu[i] for i in range(5))
+    # on a mesh each matmul's (B, T) fold sharded on the batch alone
+    mr, mk, mv, mw, mg = (merge_ready(x + delta * mu[i]) for i in range(5))
     r = (mr @ p["wr"]).reshape(B, T, H, Dk)
     k = (mk @ p["wk"]).reshape(B, T, H, Dk)
     v = (mv @ p["wv"]).reshape(B, T, H, Dk)
     g = F.silu(mg @ p["wg"])
     # the data-dependent decay (RWKV6's signature), f32
-    dd = torch.tanh(mw @ p["wa"]) @ p["wb"]
+    dd = merge_ready(torch.tanh(mw @ p["wa"])) @ p["wb"]
     logw = -torch.exp(torch.clamp(p["w0"] + dd.float(), -8.0, 2.0)).reshape(B, T, H, Dk)
     wkv_state = None if state is None else state["wkv"]
     if T == 1 and wkv_state is not None:  # decode fast path
@@ -106,7 +109,7 @@ def time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
         y, wkv_out = ssm.gla_chunked(r, k, v, logw, p["u"], state=wkv_state,
                                      chunk=min(cfg.ssm_chunk, T))
     y = _group_norm(y.reshape(B, T, d), H, p["gn_scale"], p["gn_bias"])
-    out = (y * g) @ p["wo"]
+    out = merge_ready(y * g) @ p["wo"]
     new_state = None if state is None else {"shift": x[:, -1], "wkv": wkv_out}
     return out, new_state
 
@@ -115,11 +118,12 @@ def channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Squared-ReLU channel mix; ``state`` (B, d) is the last token's x."""
     del cfg
+    x = merge_ready(x)
     xx = _shift(x, state)
     delta = xx - x
-    mk = x + delta * p["mu"][0]
-    mr = x + delta * p["mu"][1]
-    h = torch.square(F.relu(mk @ p["wk"]))
+    mk = merge_ready(x + delta * p["mu"][0])
+    mr = merge_ready(x + delta * p["mu"][1])
+    h = merge_ready(torch.square(F.relu(mk @ p["wk"])))
     out = torch.sigmoid(mr @ p["wr"]) * (h @ p["wv"])
     return out, (x[:, -1] if state is not None else None)
 

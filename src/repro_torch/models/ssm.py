@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.layout import fold_ready, grad_as, is_dtensor, merge_ready, settle
+
 __all__ = ["ssd_chunked", "ssd_step", "ssd_reference", "gla_chunked", "gla_step",
            "gla_reference"]
 
@@ -81,6 +83,13 @@ def ssd_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, loga: torch.Tens
              state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token decode.  q/k (B, H, Dk), v (B, H, Dv), loga (B, H)."""
     a = torch.exp(loga.float())[..., None, None]
+    if is_dtensor(state):
+        # on a mesh: products and a sum, no batched matmul (DTensor folds
+        # the batch, sharded over two mesh dims, with the heads only into a
+        # strided layout it cannot then use)
+        S = a * state + k.float()[..., :, None] * v.float()[..., None, :]
+        y = (q.float()[..., :, None] * S).sum(-2)
+        return y.to(q.dtype), S
     S = a * state + torch.einsum("bhd,bhe->bhde", k.float(), v.float())
     y = torch.einsum("bhd,bhde->bhe", q.float(), S)
     return y.to(q.dtype), S
@@ -115,6 +124,10 @@ def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.T
     in f32, a transient of the call."""
     B, T, H, Dk = r.shape
     Dv = v.shape[-1]
+    # on a mesh only the batch stays sharded, no sum pending: the chunked
+    # einsums fold (batch, chunks, heads), and DTensor folds a sharded dim
+    # only first
+    r, k, v, logw = (settle(merge_ready(t, t.ndim)) for t in (r, k, v, logw))
     # (B, N, H, Q, D): chunked, heads before positions
     rt, kt, vt = (_chunk(x, chunk).float().transpose(2, 3) for x in (r, k, v))
     c = torch.cumsum(_chunk(logw, chunk).float().transpose(2, 3), dim=3)  # inclusive
@@ -145,12 +158,16 @@ def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.T
         y_inter.append(torch.einsum("bhqd,bhde->bhqe", rdec[:, n], S))
         S = torch.exp(clast[:, n])[..., None] * S + chunk_states[:, n]
     y = y + torch.stack(y_inter, dim=1)
-    return y.transpose(2, 3).reshape(B, T, H, Dv).to(r.dtype), S
+    y = y.transpose(2, 3).reshape(B, T, H, Dv).to(r.dtype)
+    # on a mesh the gradient comes back laid out as y (the batch sharded)
+    return grad_as(y, y), S
 
 
 def gla_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
              u: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token RWKV6 decode.  r/k/logw (B, H, Dk), v (B, H, Dv), u (H, Dk)."""
+    # on a mesh the batched matmuls fold (batch, heads): one of them sharded
+    r, k, v, logw, state = (fold_ready(t, (0, 1)) for t in (r, k, v, logw, state))
     rf, kf, vf = r.float(), k.float(), v.float()
     kv = torch.einsum("bhd,bhe->bhde", kf, vf)
     y = torch.einsum("bhd,bhde->bhe", rf, state + u.float()[None, :, :, None] * kv)

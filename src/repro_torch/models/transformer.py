@@ -9,8 +9,9 @@ sliding-window pattern is a per-layer window: global layers get
 Every layer passes its window to attention, so no layer takes the
 flash-attention branch (it is taken only without a window): ``use_flash``
 changes nothing here, as in the reference, whose scan passes a traced
-window array.  The reference's sharding hint (``constrain_act``) and remat
-are training-time and multi-device matters and are left out.
+window array.  Each layer's input passes the reference's ``constrain_act``
+hook (:mod:`repro_torch.dist`), the identity outside a mesh; the
+reference's remat is left out.
 
 :func:`decode_step` writes the KV slots, or the RWKV shift and wkv
 states, of the cache it is given in place, and returns that same cache.
@@ -23,6 +24,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.dist.constraints import constrain_act
+from repro_torch.dist.layout import gather_clients, merge_ready
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -34,6 +37,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     embed_tokens,
+    gathered,
     init_norm,
     layer_at,
     lm_head,
@@ -103,20 +107,23 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int, use_flash: bool,
            static_window: Optional[int] = None):
-    """One layer -> (x, MoE aux)."""
+    """One layer -> (x, MoE aux).  On a mesh the residual stream and each
+    branch's output are pinned to ``act_spec`` (the branch's partial sums
+    reduce-scattered into it; its gradient gathered on the way back)."""
+    x = constrain_act(cfg, x)
     if cfg.arch_type == "ssm":
         h, _ = rwkv_mod.time_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln1"], x))
-        x = x + h
+        x = x + constrain_act(cfg, h)
         h, _ = rwkv_mod.channel_mix(cfg, lp["cm"], apply_norm(cfg, lp["ln2"], x))
-        return x + h, None
+        return x + constrain_act(cfg, h), None
     h = attn_mod.attention(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x), window=window,
                            static_window=static_window, use_flash=use_flash)
-    x = x + h
+    x = x + constrain_act(cfg, h)
     hn = apply_norm(cfg, lp["ln2"], x)
     if cfg.n_experts > 0:
         h, aux = moe_mod.apply_moe(cfg, lp["ffn"], hn)
-        return x + h, aux
-    return x + mlp_mod.apply_mlp(cfg, lp["ffn"], hn), None
+        return x + constrain_act(cfg, h), aux
+    return x + constrain_act(cfg, mlp_mod.apply_mlp(cfg, lp["ffn"], hn)), None
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
@@ -127,13 +134,13 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     ``proj`` in front of the tokens."""
     x = embed_tokens(params, tokens)
     if prefix_embeds is not None:
-        pref = prefix_embeds.to(x.dtype) @ params["proj"]
+        pref = prefix_embeds.to(x.dtype) @ gather_clients(params["proj"])
         x = torch.cat([pref, x], dim=1)
     wins = window_array(cfg)
     static = cfg.static_window_pattern and cfg.sliding_window is not None
     period = (cfg.local_global_ratio or 0) + 1
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l, lp in enumerate(unstack_layers(params["layers"])):
+    for l, lp in enumerate(map(gathered, unstack_layers(params["layers"]))):
         sw = None
         if static:  # the unrolled stack: local layers banded, global ones dense
             is_global = cfg.local_global_ratio and l % period == cfg.local_global_ratio
@@ -141,7 +148,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         x, a = _block(cfg, lp, x, wins[l], use_flash, static_window=sw)
         if a is not None:
             aux = aux + a
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = merge_ready(apply_norm(cfg, gathered(params["final_norm"]), x))
     return x @ lm_head(cfg, params), aux
 
 
@@ -177,7 +184,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
     x = embed_tokens(params, token)
     wins = window_array(cfg)
     for l in range(cfg.n_layers):
-        lp, st = layer_at(params["layers"], l), layer_at(cache, l)  # st: views of the cache
+        # st: views of the cache
+        lp, st = gathered(layer_at(params["layers"], l)), layer_at(cache, l)
         if cfg.arch_type == "ssm":
             h, tm = rwkv_mod.time_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln1"], x),
                                       state=st["tm"])
@@ -198,5 +206,5 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token: torch.Te
         else:
             h = mlp_mod.apply_mlp(cfg, lp["ffn"], hn)
         x = x + h
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = apply_norm(cfg, gathered(params["final_norm"]), x)
     return (x @ lm_head(cfg, params))[:, 0], cache

@@ -33,7 +33,10 @@ def apply_updates(params: Params, updates: Params) -> Params:
 
 
 def tree_zeros_like(params: Params, dtype=torch.float32) -> Params:
-    return tree.map(lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device), params)
+    """f32 zeros of each param's shape, laid out as the param (a DTensor's
+    zeros are a DTensor of its placements)."""
+    return tree.map(lambda p: torch.zeros_like(p, dtype=dtype,
+                                               memory_format=torch.contiguous_format), params)
 
 
 def global_norm(t: Params) -> torch.Tensor:

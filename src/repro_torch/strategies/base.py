@@ -37,14 +37,20 @@ class ExecutionContext:
     n_clients: int
     flat_dtype: torch.dtype = torch.float32  # dtype of the raveled (n, d) stack
     fused_block_d: int = 2048  # columns each CUDA block of the kernels covers
+    #: the mesh axes the client axis is sharded over (set when the round
+    #: runs on a mesh): the kernel-fused strategies then contract the stack
+    #: in plain ops, which DTensor partitions into per-shard partial sums
+    #: and one (d,) all-reduce; a kernel takes whole local tensors only
+    spmd_axes: Optional[tuple] = None
     #: flat-dim threshold for segment streaming: at ``d >= segment_d`` the
     #: kernel-fused strategies consume per-leaf (n, d_i) segments instead of
     #: the monolithic (n, d) stack; 0 keeps the monolithic path.
     segment_d: int = 0
 
     def use_segments(self, d: int) -> bool:
-        """Whether the segment-streaming path engages for flat dim ``d``."""
-        return 0 < self.segment_d <= d
+        """Whether the segment-streaming path engages for flat dim ``d``
+        (never with ``spmd_axes``: the monolithic contraction is partitioned)."""
+        return 0 < self.segment_d <= d and not self.spmd_axes
 
 
 class AggregationStrategy:
@@ -124,7 +130,10 @@ class AggregationStrategy:
         if w is not None:
             return tree.map(lambda D: torch.tensordot(w, D, dims=1), deltas), state
         spec = flatten.flat_spec(deltas, stacked=True)
-        stack = flatten.ravel_stacked(deltas, dtype=ctx.flat_dtype)
+        # a DTensor stack is concatenated: its leaves cannot be copied into
+        # a plain buffer (the two ravels are bitwise equal)
+        ravel = flatten.ravel_stacked_concat if ctx.spmd_axes else flatten.ravel_stacked
+        stack = ravel(deltas, dtype=ctx.flat_dtype)
         gflat, state = self.aggregate(stack, tau_up, tau_dd, A, state)
         return flatten.unravel(spec, gflat, dtype=torch.float32), state
 

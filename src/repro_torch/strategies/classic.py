@@ -11,7 +11,9 @@ ColRel's ``fused`` option picks how the same delta is computed:
   through the fused aggregation kernel in one pass; with
   ``ctx.use_segments(d)`` the per-leaf ``(n, d_i)`` segments stream
   through one launch of the row kernel against one collapsed weight row
-  instead.
+  instead.  On a mesh (``ctx.spmd_axes``) the flat stack is contracted
+  against the collapsed weights in plain ops, as the reference's sharded
+  branch does.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import flatten
 from repro_torch.core import relay as relay_ops
+from repro_torch.dist.layout import settle
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.strategies import registry
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext, State
@@ -62,6 +65,13 @@ class ColRelStrategy(AggregationStrategy):
                 w = kernel_ops.collapsed_weight_row(A, tau_up, tau_dd)
                 segments = flatten.ravel_stacked_segments(deltas, dtype=ctx.flat_dtype)
                 gflat = kernel_ops.row_stream_segments(w, segments, block_d=ctx.fused_block_d)
+                return flatten.unravel(spec, gflat, dtype=torch.float32), state
+            if ctx.spmd_axes:
+                # sharded: the plain contraction, which DTensor splits into
+                # per-shard partial products and one (d,) all-reduce
+                stack = flatten.ravel_stacked_concat(deltas, dtype=ctx.flat_dtype)
+                w = self.weights(tau_up, tau_dd, A)
+                gflat = settle(w[None] @ stack.float()).reshape(-1)
                 return flatten.unravel(spec, gflat, dtype=torch.float32), state
             stack = flatten.ravel_stacked(deltas, dtype=ctx.flat_dtype)
             gflat = kernel_ops.fused_aggregate(A, tau_up, tau_dd, stack,

@@ -32,6 +32,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import blocks as block_ops
 from repro_torch.core import flatten
+from repro_torch.dist.layout import settle, split_ready
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.strategies import registry
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext, State
@@ -86,6 +87,13 @@ class ClusteredColRelStrategy(AggregationStrategy):
                 gflat = kernel_ops.block_row_stream_segments(w, segments,
                                                              block_d=ctx.fused_block_d)
                 return flatten.unravel(spec, gflat, dtype=torch.float32), state
+            if ctx.spmd_axes:
+                # sharded: the plain contraction over the cluster axis
+                # (per-shard partial sums and one (d,) all-reduce)
+                stack = flatten.ravel_stacked_concat(deltas, dtype=ctx.flat_dtype)
+                w = self.weights(tau_up, tau_dd, A)
+                gflat = settle(w[None] @ stack.float()).reshape(-1)
+                return flatten.unravel(spec, gflat, dtype=torch.float32), state
             stack = flatten.ravel_stacked(deltas, dtype=ctx.flat_dtype)
             gflat = kernel_ops.block_fused_aggregate(A, tau_up, tau_dd, stack,
                                                      block_d=ctx.fused_block_d)
@@ -99,7 +107,8 @@ class ClusteredColRelStrategy(AggregationStrategy):
         gdelta = tree.map(
             lambda D: torch.einsum(
                 "ci,ci...->...", t,
-                torch.einsum("cij,cj...->ci...", Mb, D.reshape(C, m, *D.shape[1:])))
+                torch.einsum("cij,cj...->ci...", Mb,
+                             split_ready(D, 0, C).reshape(C, m, *D.shape[1:])))
             / ctx.n_clients,
             deltas)
         return gdelta, state

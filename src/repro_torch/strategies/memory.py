@@ -74,7 +74,7 @@ class MemoryStrategy(AggregationStrategy):
         return delta, contrib
 
     def aggregate_tree(self, deltas, tau_up, tau_dd, A, state, ctx: ExecutionContext):
-        if self.fused != "kernel":
+        if self.fused != "kernel" or ctx.spmd_axes:
             return super().aggregate_tree(deltas, tau_up, tau_dd, A, state, ctx)
         spec = flatten.flat_spec(deltas, stacked=True)
         if ctx.use_segments(spec.d):

@@ -116,7 +116,7 @@ class QuantizedStrategy(AggregationStrategy):
         return delta, (codec_state, inner_state)
 
     def aggregate_tree(self, deltas, tau_up, tau_dd, A, state, ctx: ExecutionContext):
-        if self.fused != "kernel":
+        if self.fused != "kernel" or ctx.spmd_axes:
             return super().aggregate_tree(deltas, tau_up, tau_dd, A, state, ctx)
         spec = flatten.flat_spec(deltas, stacked=True)
         codec_state, inner_state = state

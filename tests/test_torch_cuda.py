@@ -22,7 +22,8 @@ engine's graphed chunk (one captured round replayed) is held to the
 per-round loop bitwise, with the int8 codec's generator, and so are the
 client_sequential, weighted_grad and async rounds (every round metric
 too), async with no_trace as well; the captured async round launches
-kernel 1 (monolithic), kernel 2 (segmented) or kernel 8 (clustered) once.
+kernel 1 (monolithic), kernel 2 (segmented) or kernel 8 (clustered) once;
+colrel's kernel round launches kernel 1 once with ``spmd_axes`` and no mesh.
 An adaptive mobility run's chunks are bitwise its per-round run with the
 re-optimized alphas swapped in, from one capture; so are the multihop,
 topk and randk rounds (randk's generator too).  Telemetry on is bitwise
@@ -973,6 +974,35 @@ def test_failed_capture_raises_and_does_not_fall_back(dev):
     with pytest.raises(RuntimeError):
         scan(p, sopt.init(p), (), batches, *taus, torch.eye(2, device=dev))
     assert scan.graph is None and torch.equal(p["x"], torch.zeros(3, device=dev))
+
+
+def test_spmd_axes_outside_a_mesh_launches_kernel_1(dev):
+    """``spmd_axes`` is inert outside a mesh: colrel ``fused="kernel"``
+    launches kernel 1 once a round with it, as without it, and the rounds
+    are bitwise equal."""
+    from repro_torch import strategies
+    from repro_torch.fl.round import RoundConfig, make_round_fn
+    from repro_torch.optim import sgd, sgd_momentum
+
+    def loss_fn(params, batch):
+        return torch.sum((params["x"] - batch["t"][0]) ** 2), {}
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    batches = {"t": torch.randn(4, 2, 1, 300, generator=g, device=dev)}
+    tau_up = (torch.rand(4, generator=g, device=dev) < 0.7).float()
+    tau_dd = (torch.rand(4, 4, generator=g, device=dev) < 0.6).float()
+    A = torch.rand(4, 4, generator=g, device=dev) * 0.5
+    p0 = {"x": torch.zeros(300, device=dev)}
+    sopt = sgd_momentum(1.0, beta=0.9)
+    outs = []
+    for axes in (None, ("data",)):
+        rc = RoundConfig(n_clients=4, local_steps=2, spmd_axes=axes,
+                         aggregation=strategies.get("colrel", fused="kernel"))
+        before = fa.fused_aggregate_cuda.launches
+        outs.append(make_round_fn(loss_fn, sgd(0.1), sopt, rc)(p0, sopt.init(p0), (), batches,
+                                                               tau_up, tau_dd, A))
+        assert fa.fused_aggregate_cuda.launches == before + 1
+    assert torch.equal(outs[0][0]["x"], outs[1][0]["x"])
 
 
 def test_int8_generator_advances_alike_eager_and_replayed(deterministic):

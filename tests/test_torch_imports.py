@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``repro_torch``, and neither
 ``chip_smoke.py``, ``tools/torch_kill_resume_smoke.py`` nor the
-``examples/*_torch.py``, imports JAX or the reference package, and its
-entry points run on CUDA unless the caller asks for the CPU."""
+``examples/*_torch.py``, imports JAX or the reference package; importing
+it touches no ``torch.distributed`` state; and its entry points run on
+CUDA unless the caller asks for the CPU, and set up no process group
+unless given a mesh."""
 
 import ast
 import importlib.util
@@ -67,7 +69,9 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.configs.dbrx_132b", "repro_torch.launch.train",
             "repro_torch.launch.specs", "repro_torch.optim.schedule",
             "repro_torch.optim.adam", "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
-            "repro_torch.core.aggregation"} <= set(modules)
+            "repro_torch.core.aggregation", "repro_torch.dist", "repro_torch.dist.constraints",
+            "repro_torch.dist.mesh", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
@@ -75,6 +79,44 @@ def test_importing_every_port_module_loads_no_jax():
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
                          check=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_importing_the_port_leaves_torch_distributed_untouched():
+    """Importing every module of the port imports no ``torch.distributed``
+    module beyond what ``import torch`` does, and starts no process group."""
+    modules = sorted(".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)
+                     .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys, torch\n"
+            "base = {m for m in sys.modules if m.startswith('torch.distributed')}\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "new = {m for m in sys.modules if m.startswith('torch.distributed')} - base\n"
+            "print(sorted(new), torch.distributed.is_initialized())")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         check=True, timeout=120)
+    assert out.stdout.strip() == "[] False", out.stdout + out.stderr
+
+
+def test_no_entry_point_sets_up_a_process_group_without_a_mesh():
+    """A one-device round (the one-card dry run's), the step builder
+    without a mesh and a CPU serve leave no process group behind."""
+    code = """
+import torch
+from repro_torch.configs.base import InputShape, get_arch
+from repro_torch.launch import dryrun, serve, steps
+cfg = get_arch("qwen3-0.6b").smoke()
+rec = dryrun.run_one("qwen3-0.6b", InputShape("t", 16, 2, "train"), mesh="card", n_clients=2,
+                     cfg=cfg)
+step, args, in_sh, out_sh = steps.build_step("qwen3-0.6b", "decode_32k", None)
+assert in_sh is None and out_sh is None
+serve.serve("qwen3-0.6b", smoke=True, device="cpu", batch=1, prompt_len=8, gen=2)
+print(torch.distributed.is_initialized())
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "False", out.stdout
 
 
 def test_entry_points_need_cuda_unless_told_otherwise(monkeypatch):

@@ -115,8 +115,9 @@ def _task():
 
 
 def test_inert_round_config_fields_leave_the_round_bitwise():
-    """``use_flash``, ``unroll`` and ``spmd_axes`` are accepted and read by
-    nothing: the round with them is bitwise the round without."""
+    """``use_flash`` and ``unroll`` are accepted and read by nothing, and
+    ``spmd_axes`` is inert outside a mesh: the round with them is bitwise
+    the round without."""
     loss_fn, init, clients, copt, sopt = _task()
     batches = {k: torch.as_tensor(v) for k, v in clients[0].next_batches(2).items()}
     batches = tree.map(lambda x: x[None].expand(N, *x.shape).contiguous(), batches)
@@ -133,6 +134,62 @@ def test_inert_round_config_fields_leave_the_round_bitwise():
     assert all(torch.equal(a, b) for a, b in zip(tree.leaves(p0), tree.leaves(p1)))
     assert all(torch.equal(a, b) for a, b in zip(tree.leaves(s0), tree.leaves(s1)))
     assert {k: float(v) for k, v in m0.items()} == {k: float(v) for k, v in m1.items()}
+
+
+# (strategy, segment_d, the ops entry its kernel route calls once a round)
+KERNEL_ROUTES = {
+    "colrel": ("colrel", 0, "fused_aggregate"),
+    "colrel_segments": ("colrel", 1, "row_stream_segments"),
+    "clustered": ("clustered", 0, "block_fused_aggregate"),
+    "clustered_segments": ("clustered", 1, "block_row_stream_segments"),
+    "memory": ("memory", 0, "fused_memory_update"),
+    "memory_segments": ("memory", 1, "memory_stream_segments"),
+    "quantized": ("quantized", 0, "fused_dequant_aggregate"),
+    "quantized_segments": ("quantized", 1, "row_stream_segments"),
+}
+
+
+@pytest.mark.parametrize("route", list(KERNEL_ROUTES))
+def test_spmd_axes_outside_a_mesh_keeps_the_kernel_route(route, monkeypatch):
+    """Outside a mesh ``spmd_axes`` leaves a ``fused="kernel"`` strategy on
+    its kernel's route (on the CPU the kernel's plain version), one call a
+    round, and the round bitwise the round without it; only a round on a
+    mesh contracts in plain ops."""
+    from repro_torch.core import flatten
+    from repro_torch.kernels import ops
+
+    name, segment_d, entry = KERNEL_ROUTES[route]
+    loss_fn, init, clients, copt, sopt = _task()
+    batches = {k: torch.as_tensor(v) for k, v in clients[0].next_batches(2).items()}
+    batches = tree.map(lambda x: x[None].expand(N, *x.shape).contiguous(), batches)
+    g = torch.Generator().manual_seed(1)
+    tau_up = (torch.rand(N, generator=g) < 0.7).float()
+    if name == "clustered":
+        A = torch.full((2, N // 2, N // 2), 2.0 / N)
+        tau_dd = (torch.rand(2, N // 2, N // 2, generator=g) < 0.5).float()
+    else:
+        A = torch.as_tensor(fedavg_weights(N), dtype=torch.float32)
+        tau_dd = (torch.rand(N, N, generator=g) < 0.5).float()
+    calls = []
+    real = getattr(ops, entry)
+    monkeypatch.setattr(ops, entry, lambda *a, **k: calls.append(1) or real(*a, **k))
+    outs = []
+    for axes in (None, ("data",)):
+        strategy = strategies.get(name, fused="kernel")
+        rc = RoundConfig(n_clients=N, local_steps=2, aggregation=strategy, segment_d=segment_d,
+                         spmd_axes=axes)
+        state = strategy.init_state(N, flatten.flat_spec(init).d)
+        fn = make_round_fn(loss_fn, copt, sopt, rc)
+        outs.append(fn(init, sopt.init(init), state, batches, tau_up, tau_dd, A))
+        assert len(calls) == 1, f"{entry} called {len(calls)} times a round"
+        calls.clear()
+    (p0, s0, a0, m0), (p1, s1, a1, m1) = outs
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(p0) + tree.leaves(s0),
+                                                 tree.leaves(p1) + tree.leaves(s1)))
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(a0), tree.leaves(a1))
+               if isinstance(a, torch.Tensor) and a.is_floating_point())
+    assert m0.keys() == m1.keys()
+    assert all(np.array_equal(m0[k].numpy(), m1[k].numpy(), equal_nan=True) for k in m0)
 
 
 def _run(**kw):

@@ -18,9 +18,6 @@ JAX_ONLY = {
                 "ssd_scan_pallas"},
     # jax.random key plumbing; the port's samplers take a torch.Generator
     "channel": {"channel_key"},
-    # sharding over a jax mesh; one card has none (ROADMAP.md)
-    "dist": {"constrain", "constrain_act", "constrain_grads", "current_mesh", "spmd_axis_name",
-             "client_axes", "make_debug_mesh", "make_production_mesh", "n_clients"},
 }
 # reference name -> the port's name for the same job
 RENAMED = {
@@ -30,7 +27,7 @@ RENAMED = {
 
 
 def test_every_reference_subpackage_is_listed():
-    assert set(JAX_ONLY) | set(RENAMED) <= set(SUBPACKAGES)
+    assert set(JAX_ONLY) | set(RENAMED) <= set(SUBPACKAGES) and "dist" not in JAX_ONLY
     assert {"channel", "checkpoint", "ckpt", "configs", "core", "data", "dist", "fl", "kernels",
             "launch", "models", "optim", "strategies", "telemetry", "wire"} == set(SUBPACKAGES)
 
@@ -41,7 +38,7 @@ def test_port_exports_the_reference_names(sub):
     want = set(getattr(ref, "__all__", ())) - JAX_ONLY.get(sub, set())
     want = {RENAMED.get(sub, {}).get(name, name) for name in want}
     if not want:
-        # nothing of it to port (dist), or no names exported (launch)
+        # no names exported (launch)
         return
     port = importlib.import_module(f"repro_torch.{sub}")
     exported = set(getattr(port, "__all__", ()))
