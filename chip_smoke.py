@@ -407,13 +407,23 @@ EST_DEPTH, EST_CLIENTS = 2, 8
 EST_PEAK_REL = 0.10
 # Phase 14: the sharded round on a 1 x 1 mesh (NCCL, one rank) at the
 # launcher's defaults, SH_CLIENTS clients x SH_T local steps x SH_B x SH_S
-# tokens, held bitwise to the round without a mesh; the dry run at
+# tokens, held bitwise to the round without a mesh, then as a chunk; the dry run at
 # --mesh both on SH_DR_SHAPES (host processes started with phase 13); the
 # 1 x 1 mesh's traces of phase 13's estimate steps held to its one-card
 # traces: FLOPs equal, the peak within SH_PEAK_REL
 SH_ARCH = "qwen3-0.6b"
 SH_CLIENTS, SH_T, SH_B, SH_S = 8, 4, 4, 64
+# Phase 14's chunked engine on the mesh: one chunk of SH_K rounds captured on
+# the 1 x 1 mesh, held bitwise to SH_K per-round mesh rounds and to the
+# unsharded chunk; a per-shard save after it, then the next chunk, resumed
+# from the save into the captured step, bitwise the uninterrupted one
+SH_K = 2
 SH_DR_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# one layer's share of these at 16 x 16 (tools/torch_dryrun_probe.py); a
+# decode layer's collectives without the f32 logits' all-gather over the
+# sequence-sharded cache (1.68e7 B of 1.71e7 before), at most a tenth
+SH_LAYER_SHAPES = ("decode_32k", "prefill_32k")
+SH_DECODE_LAYER_BYTES = 1.71e6
 SH_PEAK_REL = 1e-3
 # (script, flags, a line its run must print)
 EXAMPLES = (("quickstart_torch.py", ["--rounds", "2", "--local-steps", "2"], "ColRel final loss"),
@@ -473,6 +483,16 @@ def bound_ms(n_bytes, flops, flops_per_s=F32_FLOPS):
 def rel_l2(a, b):
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
+
+
+def graph_nodes(graph):
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` (kept with
+    ``keep_graph=True``)."""
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    check(err == 0, f"cuGraphGetNodes returned {err}")
+    return count.value
 
 
 def run_counted(wrappers, label, fn, expect):
@@ -1281,15 +1301,6 @@ def main():
     # every kernel path of phase 4 (and the collapse) once more from the same
     # init as one chunk of ROUNDS rounds: one round captured as a CUDA graph
     # and replayed ROUNDS times, held bitwise to the path's per-round run
-    libcuda = ctypes.CDLL("libcuda.so.1")
-
-    def graph_nodes(graph):
-        count = ctypes.c_size_t(0)
-        err = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
-                                      ctypes.byref(count))
-        check(err == 0, f"cuGraphGetNodes returned {err}")
-        return count.value
-
     def engine_line(scan):
         st = scan.stats
         return (f"warm-up {st['warmup_s']:.2f} s, capture {st['capture_s']:.2f} s, instantiate "
@@ -1410,22 +1421,23 @@ def main():
           f"{[round(x, 4) for x in per_b]}; median per round {per_med:.4f} s, chunked "
           f"{statistics.mean([ch_a, ch_b]):.4f} s ({per_med / statistics.mean([ch_a, ch_b]):.2f}x); "
           f"{engine_line(ch_exp.trainer._scan_fn)} [{card}]")
-    # one replayed chunk under the profiler: the device's busy share, and the
+    # one replayed chunk of ROUNDS rounds (the captured graph's) under the
+    # profiler, device activity only: the device's busy share, and the
     # aggregation kernel's launches in the trace against captured x replays
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        ch_exp.run(CHUNK_K, chunk=CHUNK_K)
+        ch_exp.run(ROUNDS, chunk=ROUNDS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     chunk_kernels = [e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in chunk_kernels) / 1e3
     seen = sum(e.count for e in chunk_kernels if "fused_aggregate_kernel" in e.key)
-    per_chunk = ch_exp.trainer._scan_fn.stats["captured_launches"]["fused_aggregate_cuda"] * CHUNK_K
+    per_chunk = ch_exp.trainer._scan_fn.stats["captured_launches"]["fused_aggregate_cuda"] * ROUNDS
     check(seen == per_chunk, f"the profiler saw fused_aggregate_kernel {seen} times in a "
           f"replayed chunk, captured x replays is {per_chunk}")
-    print(f"[chunk] one replayed chunk of {CHUNK_K} rounds under torch.profiler: wall "
+    print(f"[chunk] one replayed chunk of {ROUNDS} rounds under torch.profiler: wall "
           f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{sum(e.count for e in chunk_kernels)} device kernels; fused_aggregate_kernel "
           f"{seen} in the trace = {per_chunk} captured x replays [{card}]")
@@ -3274,6 +3286,11 @@ def start_host_runs():
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SH_ARCH, "--shape", shape,
          "--mesh", "both", "--by-op", "--out", str(out_dir)], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for shape in SH_DR_SHAPES}
+    for shape in SH_LAYER_SHAPES:
+        procs[f"probe {shape}"] = subprocess.Popen(
+            [sys.executable, str(ROOT / "tools" / "torch_dryrun_probe.py"), "--arch", SH_ARCH,
+             "--shape", shape, "--mesh", "single", "--layers", "1", "2", "--show-attention"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     procs["1x1"] = subprocess.Popen(
         [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.mesh_1x1_traces(sys.argv[1])",
          str(MESH_1X1_OUT)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -3282,24 +3299,26 @@ def start_host_runs():
     return procs
 
 
-def sharded_layer(dev, card, wrappers, one_card, host_runs):
-    """Phase 14: the multi-device layer on one card (see SH_*): the sharded
-    round on a 1 x 1 mesh against the round without one, the mesh dry
-    runs' records, and the 1 x 1 mesh's traces against phase 13's."""
+def sharded_rounds(dev, card, wrappers):
+    """Phase 14 (a): from the same inputs, the unsharded chunk of SH_K rounds,
+    SH_K per-round rounds of the sharded round on a 1 x 1 mesh of an NCCL
+    group of one and the mesh's captured chunk, all bitwise; then a
+    per-shard save written beside the next chunk, and a resume from it into
+    the captured step (see SH_*)."""
+    import shutil
     import socket
 
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from repro_torch import tree
+    from repro_torch.ckpt.writer import AsyncCheckpointer, CheckpointWriter
     from repro_torch.configs.base import InputShape, get_arch
     from repro_torch.dist import make_debug_mesh
-    from repro_torch.launch.steps import build_step, place
+    from repro_torch.launch.steps import build_step, place, train_state_shardings
     from repro_torch.models import build as build_model
     from repro_torch.optim import sgd_momentum
 
-    t14 = time.perf_counter()
-    # (a) the sharded round on a 1 x 1 mesh of an NCCL group of one
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -3311,47 +3330,157 @@ def sharded_layer(dev, card, wrappers, one_card, host_runs):
         mesh = make_debug_mesh(1, 1, device_type="cuda")
         shape = InputShape("sh14", SH_S, SH_B * SH_CLIENTS, "train")
         step, args, in_sh, _ = build_step(SH_ARCH, shape, mesh, n_clients=SH_CLIENTS)
-        plain, _, _, _ = build_step(SH_ARCH, shape, None, n_clients=SH_CLIENTS)
         cfg = get_arch(SH_ARCH).full()
         g = torch.Generator(device=dev).manual_seed(14)
         params = build_model(cfg).init(g)
-        toks = torch.randint(0, cfg.vocab_size, (SH_CLIENTS, SH_T, SH_B, SH_S + 1), device=dev,
-                             generator=g)
-        batches = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
         n = SH_CLIENTS
         A = torch.full((n, n), 1.0 / n, device=dev)
-        tau_up = (torch.rand(n, device=dev, generator=g) < 0.8).float()
-        tau_dd = (torch.rand(n, n, device=dev, generator=g) < 0.7).float()
         server = sgd_momentum(1.0, beta=0.9)
 
-        def run(fn, p):
-            return fn(p, server.init(p), (), batches, tau_up, tau_dd, A)
+        def chunk_inputs():
+            """A chunk's batches (SH_K, n, T, B, S) and taus (SH_K, n), (SH_K, n, n)."""
+            toks = torch.randint(0, cfg.vocab_size, (SH_K, n, SH_T, SH_B, SH_S + 1), device=dev,
+                                 generator=g)
+            return ({"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()},
+                    (torch.rand(SH_K, n, device=dev, generator=g) < 0.8).float(),
+                    (torch.rand(SH_K, n, n, device=dev, generator=g) < 0.7).float())
 
-        want, t_plain, _ = run_counted(wrappers, "phase 14 round without a mesh",
-                                       lambda: run(plain, params), {})
+        xs, tus, tds = chunk_inputs()
+
+        def round_args(r, sh):
+            a = ({k: v[r] for k, v in xs.items()}, tus[r], tds[r], A)
+            return tuple(place(x, s_) for x, s_ in zip(a, sh[3:7]))
+
+        def locals_(carry):
+            return [x.to_local().clone() if isinstance(x, DTensor) else x.clone()
+                    for x in tree.leaves(carry)]
+
+        def bitwise(a, b):
+            return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+        # (a1) the unsharded chunk (its eager warm-up is a round without a mesh)
+        plain_k = build_step(SH_ARCH, shape, None, n_clients=SH_CLIENTS, scan_rounds=SH_K)[0]
+        out, t_u, _ = run_counted(wrappers, "phase 14 unsharded chunk", lambda: plain_k(
+            params, server.init(params), (), xs, tus, tds, A), {})
+        plain_carry, plain_metrics = locals_(out[:3]), out[3]
+        u_st, u_nodes = dict(plain_k.stats), graph_nodes(plain_k.graph)
+        del out, plain_k
+        torch.cuda.empty_cache()
+
+        # (a2) SH_K per-round rounds on the mesh
         dparams = place(params, in_sh[0])
-        got, t_mesh, _ = run_counted(wrappers, "phase 14 round on the 1 x 1 mesh",
-                                     lambda: run(step, dparams), {})
+        got = (dparams, place(server.init(params), in_sh[1]), ())
+        mesh_metrics, t_rounds = [], []
+        for r in range(SH_K):
+            got, t_r, _ = run_counted(wrappers, f"phase 14 mesh round {r + 1}",
+                                      lambda: step(*got[:3], *round_args(r, in_sh)), {})
+            mesh_metrics.append(got[3])
+            t_rounds.append(t_r)
         check(all(isinstance(x, DTensor) and x.device_mesh == mesh for x in tree.leaves(got[0])),
               "phase 14: a param of the sharded round is not a DTensor on the mesh")
-        pairs = list(zip(tree.leaves(got[0]), tree.leaves(want[0])))
-        same = all(torch.equal(a.to_local(), b) for a, b in pairs)
-        worst = max(float((a.to_local().float() - b.float()).abs().max()) for a, b in pairs)
-        loss_gap = abs(float(got[3]["loss"]) - float(want[3]["loss"]))
-        check(same or all(torch.allclose(a.to_local().float(), b.float(), atol=3e-5, rtol=3e-4)
-                          for a, b in pairs), f"phase 14: the sharded round is {worst} off")
-        print(f"[sharded] {SH_ARCH} full width, one per_client ColRel round ({SH_CLIENTS} clients"
-              f" x {SH_T} local steps x {SH_B} x {SH_S} tokens) on a 1 x 1 (data, model) mesh of "
-              f"an NCCL group of one, spmd_axes=('data',): {len(pairs)} params all DTensors on "
-              f"the mesh; against the round without a mesh: "
-              f"{'bitwise' if same else f'max abs err {worst:.3e}'}, loss "
-              f"{float(got[3]['loss']):.6f} vs {float(want[3]['loss']):.6f} (gap {loss_gap:.3e});"
-              f" s/round {t_mesh:.3f} on the mesh, {t_plain:.3f} without [{card}]")
-        check(loss_gap <= 1e-4, f"phase 14: loss gap {loss_gap}")
-        del got, want, dparams, params, batches
+        rounds_carry = locals_(got[:3])
+        rows_plain = all(torch.equal(plain_metrics[k], torch.stack([m[k].float()
+                                                                    for m in mesh_metrics]))
+                         for k in plain_metrics)
+        check(bitwise(rounds_carry, plain_carry) and rows_plain,
+              f"phase 14: {SH_K} rounds on the mesh differ from the unsharded chunk's")
+        print(f"[sharded] {SH_ARCH} full width, {SH_K} per_client ColRel rounds ({SH_CLIENTS} "
+              f"clients x {SH_T} local steps x {SH_B} x {SH_S} tokens) on a 1 x 1 (data, model) "
+              f"mesh of an NCCL group of one, spmd_axes=('data',): {len(tree.leaves(got[0]))} "
+              f"params all DTensors on the mesh, bitwise the unsharded chunk's {SH_K} rounds "
+              f"(params, server state, every metric; loss "
+              f"{[round(float(m['loss']), 6) for m in mesh_metrics]}); s/round "
+              f"{[round(x, 3) for x in t_rounds]} on the mesh, {u_st['warmup_s']:.3f} without "
+              f"(the unsharded chunk's eager warm-up round) [{card}]")
+        del got, dparams
+        torch.cuda.empty_cache()
+
+        # (a3) the mesh's chunk from the same inputs
+        torch.cuda.reset_peak_memory_stats()
+        step_k, _, sh_k, _ = build_step(SH_ARCH, shape, mesh, n_clients=SH_CLIENTS,
+                                        scan_rounds=SH_K)
+        scan = step_k.__wrapped__
+        dparams = place(params, sh_k[0])
+        # the server state laid out too, so that a restored carry (laid out
+        # by train_state_shardings) meets the same static buffers
+        carry0 = (dparams, place(server.init(params), sh_k[1]), ())
+        chunk_in = tuple(place(x, s_) for x, s_ in zip((xs, tus, tds, A), sh_k[3:7]))
+        out, t_k, _ = run_counted(wrappers, "phase 14 mesh chunk", lambda: step_k(
+            *carry0, *chunk_in), {})
+        st = scan.stats
+        chunk_carry = locals_(out[:3])
+        rows_same = all(torch.equal(out[3][k], torch.stack([m[k].float() for m in mesh_metrics]))
+                        for k in step_k.metric_keys)
+        check(scan.graph is not None and st["replays"] == SH_K and st["captures"] == 1,
+              f"phase 14: the mesh chunk did not replay a captured round: {st}")
+        check(all(isinstance(x, DTensor) for x in scan._slot.bufs[:len(tree.leaves(dparams))]),
+              "phase 14: the mesh chunk's static params are not DTensors")
+        check(bitwise(chunk_carry, rounds_carry) and rows_same,
+              f"phase 14: the mesh chunk differs from its {SH_K} per-round mesh rounds")
+        check(bitwise(chunk_carry, plain_carry),
+              "phase 14: the mesh chunk differs from the unsharded chunk")
+        print(f"[sharded] chunked engine on the 1 x 1 mesh: one chunk of {SH_K} rounds, one round "
+              f"captured (NCCL group of one) and replayed {st['replays']} times, bitwise the "
+              f"{SH_K} per-round mesh rounds (params, server state, metrics) and the unsharded "
+              f"chunk; warm-up {st['warmup_s']:.2f} s, capture {st['capture_s']:.2f} s, "
+              f"instantiate {st['instantiate_s']:.2f} s, {graph_nodes(scan.graph)} graph nodes, "
+              f"graph pool {st['pool_bytes'] / 1e9:.2f} GB, chunk wall {t_k:.1f} s; the unsharded "
+              f"chunk: warm-up {u_st['warmup_s']:.2f} s, capture {u_st['capture_s']:.2f} s, "
+              f"instantiate {u_st['instantiate_s']:.2f} s, {u_nodes} graph nodes, pool "
+              f"{u_st['pool_bytes'] / 1e9:.2f} GB, chunk wall {t_u:.1f} s [{card}]")
+
+        # (a4) a per-shard save after the chunk, written while the next chunk
+        # runs, and a resume from it into the captured step
+        ckdir = ROOT / "build" / "ckpt_mesh14"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        ckpt = AsyncCheckpointer(ckdir, keep=2)
+        xs2, tus2, tds2 = chunk_inputs()
+        chunk2 = tuple(place(x, s_) for x, s_ in zip((xs2, tus2, tds2, A), sh_k[3:7]))
+        try:
+            rec = ckpt.save(SH_K, dict(zip(("params", "server_state", "agg_state"), out[:3])))
+            out, t_k2, _ = run_counted(wrappers, "phase 14 mesh chunk 2", lambda: step_k(
+                *out[:3], *chunk2), {})
+            want2, metrics2 = locals_(out[:3]), out[3]
+            ckpt.wait()
+        finally:
+            ckpt.close()
+        t = time.perf_counter()
+        back = CheckpointWriter(ckdir).load(SH_K)
+        shardings = train_state_shardings(SH_ARCH, shape, mesh)
+        restored = tuple(place(back[k], shardings[k]) for k in ("params", "server_state",
+                                                                "agg_state"))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t
+        del back
+        out, t_k3, _ = run_counted(wrappers, "phase 14 resumed mesh chunk", lambda: step_k(
+            *restored, *chunk2), {})
+        check(st["captures"] == 1 and st["replays"] == 3 * SH_K,
+              f"phase 14: the resume captured again: {st}")
+        check(bitwise(locals_(out[:3]), want2)
+              and all(torch.equal(out[3][k], metrics2[k]) for k in metrics2),
+              "phase 14: the resumed mesh chunk differs from the uninterrupted one")
+        print(f"[sharded] per-shard checkpoint of the mesh chunk's carry: {rec['bytes'] / 1e9:.3f}"
+              f" GB (one rank, {ckdir.name}/{ckpt.writer.path_for(SH_K).name}), the loop blocked "
+              f"{rec['snapshot_s']:.3f} s, written on the writer thread in {rec['commit_s']:.2f} s "
+              f"beside the next chunk; read and laid out on the mesh {t_load:.2f} s; the next "
+              f"chunk resumed from it into the captured step (no new capture) bitwise the "
+              f"uninterrupted chunk; s/round replayed {t_k2 / SH_K:.3f} (with the write) and "
+              f"{t_k3 / SH_K:.3f} (beside {statistics.median(t_rounds):.3f} per round on the mesh);"
+              f" peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+        del out, restored, step_k, scan, carry0, dparams, chunk_in, chunk2, params
+        shutil.rmtree(ckdir, ignore_errors=True)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+
+def sharded_layer(dev, card, wrappers, one_card, host_runs):
+    """Phase 14: the multi-device layer on one card (see SH_*): the sharded
+    round and chunk on a 1 x 1 mesh against the unsharded ones and a
+    resume, the mesh dry runs' records, and the 1 x 1 mesh's traces
+    against phase 13's."""
+    t14 = time.perf_counter()
+    sharded_rounds(dev, card, wrappers)
 
     # (c) the 1 x 1 mesh's traces of phase 13's steps against its one-card traces
     proc = host_runs["1x1"]
@@ -3370,7 +3499,30 @@ def sharded_layer(dev, card, wrappers, one_card, host_runs):
         check(got["flops"] == one["flops"], f"phase 14 1 x 1 {kind}: FLOPs differ")
         check(abs(gap) <= SH_PEAK_REL, f"phase 14 1 x 1 {kind}: peak {100 * gap:+.3f}%")
 
-    # (b) the dry run on the reference's meshes
+    mesh_dry_runs(card, host_runs)
+    print(f"[sharded] phase 14 wall {time.perf_counter() - t14:.1f} s [{card}]")
+
+
+def mesh_dry_runs(card, host_runs):
+    """Phase 14 (b): the dry run's records on the reference's meshes, and one
+    layer's share of the decode and prefill steps at 16 x 16 (the probe's
+    1- and 2-layer traces)."""
+    for shape in SH_LAYER_SHAPES:
+        proc = host_runs[f"probe {shape}"]
+        out, _ = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"probe {shape}: rc {proc.returncode}\n{out[-3000:]}")
+        lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+        layer = lines[-1]
+        coll = {k: f"{v:.4e}" for k, v in layer["collectives"].items() if v}
+        print(f"[sharded] tools/torch_dryrun_probe.py --arch {SH_ARCH} --shape {shape} --layers 1 "
+              f"2 (16 x 16, rank 0, torch {torch.__version__}; host, fake group): one layer's "
+              f"FLOPs/device {layer['flops']:.6e} by op "
+              f"{ {k: f'{v:.4e}' for k, v in layer['flops_by_op'].items()} }, collectives "
+              f"{sum(layer['collectives'].values()):.6e} B {coll}; attention layouts "
+              f"{lines[-2].get('attention')} [{card}]")
+        if shape == "decode_32k":
+            check(sum(layer["collectives"].values()) <= SH_DECODE_LAYER_BYTES,
+                  f"decode_32k: a layer's collectives {layer['collectives']}")
     out_dir = ROOT / "build" / "dryrun_torch_mesh"
     for shape in SH_DR_SHAPES:
         proc = host_runs[shape]
@@ -3396,7 +3548,6 @@ def sharded_layer(dev, card, wrappers, one_card, host_runs):
                   f"{rec['useful_flop_ratio']:.4f}; FLOPs by op "
                   f"{ {k: f'{v:.4e}' for k, v in rec['flops_by_op'].items()} }; build "
                   f"{rec['lower_s']} s, trace {rec['compile_s']} s")
-    print(f"[sharded] phase 14 wall {time.perf_counter() - t14:.1f} s [{card}]")
 
 
 if __name__ == "__main__":

@@ -51,7 +51,7 @@ from repro_torch import tree
 from repro_torch.core import flatten
 from repro_torch.core.aggregation import Aggregation
 from repro_torch.dist.constraints import constrain_grads, current_mesh
-from repro_torch.dist.layout import contiguous_strides, pin_like, settle
+from repro_torch.dist.layout import contiguous_strides, is_dtensor, pin_like, settle, wrap_local
 from repro_torch.kernels import launch_counts
 from repro_torch.optim import Optimizer, apply_updates, global_norm
 from repro_torch.strategies.base import AggregationStrategy, ExecutionContext
@@ -460,7 +460,7 @@ def make_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimize
 
 def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Optimizer,
                        rc: RoundConfig, channel_sampler: Optional[Callable] = None,
-                       telemetry: bool = False):
+                       telemetry: bool = False, grad_shardings: Optional[Params] = None):
     """The chunked multi-round engine: K rounds of :func:`make_round_fn`'s
     body per call, with one host round trip.
 
@@ -486,6 +486,13 @@ def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Opt
     one); the streak rides the carry and the vector metrics come back
     ``(K, n)``, each from its own device buffer in its own dtype.
 
+    On a mesh (inside ``use_mesh(mesh)``, ``grad_shardings`` as in
+    :func:`make_round_fn`) the carry, batches and taus are DTensors laid
+    out by the sharding rules, the leading K axis unsharded: the static
+    buffers are DTensors of the same layout, round i's slot is selected on
+    each rank's local shards, and the scalar metrics come back whole and the
+    ``(K, n)`` vectors over the client axes, as the streak is.
+
     On the CPU the K rounds run as a plain loop over the round body.  On a
     CUDA device one round is captured as a CUDA graph and replayed K times:
     the carry, the chunk's batches and taus, ``A`` and a ``(K, len(metric_keys))``
@@ -504,8 +511,8 @@ def make_scan_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Opt
     the captured K reuses the graph; anything else captures anew.  The
     statistics of the last capture are in ``scan.stats``.
     """
-    return ScanRound(make_round_fn(loss_fn, client_opt, server_opt, rc, telemetry=telemetry),
-                     channel_sampler)
+    return ScanRound(make_round_fn(loss_fn, client_opt, server_opt, rc, telemetry=telemetry,
+                                   grad_shardings=grad_shardings), channel_sampler)
 
 
 class ScanRound:
@@ -514,6 +521,8 @@ class ScanRound:
     def __init__(self, round_fn: Callable, sample_fn: Optional[Callable] = None):
         self.round_fn = round_fn
         self.sample_fn = sample_fn
+        #: the round body's scalar metrics, each a ``(K,)`` row of a chunk
+        self.metric_keys = round_fn.metric_keys
         self._slot: Optional[_RoundSlot] = None
         #: warm-up, capture and instantiate seconds, launches counted in the
         #: warm-up round and in the captured round, the graph's memory pool
@@ -546,22 +555,64 @@ class ScanRound:
         return (*out, metrics)
 
 
+def _layout(x) -> tuple:
+    """A DTensor's mesh and placements; () for a plain tensor."""
+    return (id(x.device_mesh), tuple(x.placements)) if is_dtensor(x) else ()
+
+
 def _signature(carry, xs, taus, A, gen):
     def sig(x):
         if isinstance(x, torch.Tensor):
-            return ("t", tuple(x.shape), x.dtype, x.device)
+            return ("t", tuple(x.shape), x.dtype, _local(x).device, _layout(x))
         return ("o", id(x))  # generators and other objects by identity
 
     leaves, treedef = tree.flatten(carry)
     return (treedef, tuple(map(sig, leaves)),
-            tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in sorted(xs.items())),
-            None if taus is None else tuple(tuple(t.shape[1:]) for t in taus),
+            tuple((k, tuple(v.shape[1:]), v.dtype, _layout(v)) for k, v in sorted(xs.items())),
+            None if taus is None else tuple((tuple(t.shape[1:]), _layout(t)) for t in taus),
             sig(A), None if gen is None else id(gen))
 
 
 def _load(buf: torch.Tensor, x: torch.Tensor) -> None:
+    """``x`` copied into the static buffer ``buf`` (a DTensor's local shard
+    into ``buf``'s, laid out alike)."""
     if buf is not x:
-        buf.copy_(x)
+        _local(buf).copy_(_local(pin_like(x, buf)))
+
+
+def _shifted(placements, by: int) -> list:
+    """``placements`` with each sharded tensor dim moved by ``by``."""
+    from torch.distributed.tensor import Shard
+
+    return [Shard(p.dim + by) if p.is_shard() else p for p in placements]
+
+
+def _rewrap(local: torch.Tensor, like, shape: Tuple[int, ...], by: int = 0):
+    """``local`` as the DTensor of global ``shape`` laid out as ``like`` (its
+    sharded dims moved by ``by``); ``local`` itself when ``like`` is plain."""
+    if not is_dtensor(like):
+        return local
+    return wrap_local(local, like, _shifted(like.placements, by), shape)
+
+
+def _chunk_buffer(like, K: int, dtype: torch.dtype, lead: bool = True):
+    """A static ``(K, ...)`` buffer for a chunk input ``like``: ``(K', ...)``
+    when ``lead``, else one round's value that gains the K axis.  A DTensor
+    ``like`` gives a DTensor of its layout, the K axis unsharded."""
+    if lead and is_dtensor(like) and any(p.is_shard(0) for p in like.placements):
+        raise ValueError("a chunk input's leading K axis must be unsharded, "
+                         f"got {like.placements}")
+    local = _local(like)
+    rest, lrest = (like.shape[1:], local.shape[1:]) if lead else (like.shape, local.shape)
+    buf = torch.empty((K, *lrest), dtype=dtype, device=local.device)
+    return _rewrap(buf, like, (K, *rest), 0 if lead else 1)
+
+
+def _select(buf, i: torch.Tensor):
+    """Row ``i`` (a 1-element device index) of a static ``(K, ...)`` buffer,
+    selected on its local shard."""
+    row = torch.index_select(_local(buf), 0, i)[0]
+    return _rewrap(row, buf, buf.shape[1:], -1)
 
 
 class _RoundSlot:
@@ -571,22 +622,21 @@ class _RoundSlot:
     later garbage collection."""
 
     def __init__(self, round_fn, sample_fn, stats, carry, xs, taus, A, gen, K: int, sig):
-        dev = A.device
+        dev = _local(A).device
         self.round_fn, self.sample_fn, self.stats = round_fn, sample_fn, stats
         self.sig, self.capacity, self.gen = sig, K, gen
         leaves, self.treedef = tree.flatten(carry)
         self.bufs = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
-        self.xs = {k: torch.empty((K, *v.shape[1:]), dtype=v.dtype, device=dev)
-                   for k, v in xs.items()}
+        self.xs = {k: _chunk_buffer(v, K, v.dtype) for k, v in xs.items()}
         self.taus = None if taus is None else tuple(
-            torch.empty((K, *t.shape[1:]), dtype=torch.float32, device=dev) for t in taus)
+            _chunk_buffer(t, K, torch.float32) for t in taus)
         self.A = A.clone()
         self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
         self.keys = round_fn.metric_keys
         self.metrics = torch.zeros((K, len(self.keys)), dtype=torch.float32, device=dev)
-        # the instrumented round's (n,) vectors, each in its own dtype; the
-        # streak, the carry's last leaf, gives n
-        self.vectors = {k: torch.zeros((K, leaves[-1].shape[0]), dtype=dt, device=dev)
+        # the instrumented round's (n,) vectors, each in its own dtype, laid
+        # out as the streak, the carry's last leaf
+        self.vectors = {k: _chunk_buffer(leaves[-1], K, dt, lead=False)
                         for k, dt in getattr(round_fn, "vector_dtypes", {}).items()}
         self.graph = None
         if dev.type == "cuda":
@@ -597,14 +647,14 @@ class _RoundSlot:
         carry written back in place, the metrics into row ``counter``, and
         ``counter`` advanced.  What the graph captures."""
         i = self.counter
-        x = {k: torch.index_select(v, 0, i)[0] for k, v in self.xs.items()}
+        x = {k: _select(v, i) for k, v in self.xs.items()}
         # the carry past agg_state: the channel state (sampled), the streak
         # (instrumented)
         params, server_state, agg_state, *rest = tree.unflatten(self.treedef, self.bufs)
         if self.taus is None:
             tau_up, tau_dd, rest[0] = self.sample_fn(rest[0], self.gen)
         else:
-            tau_up, tau_dd = (torch.index_select(t, 0, i)[0] for t in self.taus)
+            tau_up, tau_dd = (_select(t, i) for t in self.taus)
         args = (params, server_state, agg_state, x, tau_up, tau_dd, self.A)
         if self.vectors:
             params, server_state, agg_state, rest[-1], m = self.round_fn(*args, rest[-1])
@@ -623,10 +673,13 @@ class _RoundSlot:
                 raise RuntimeError(f"the round changed a carried tensor from {buf.shape} "
                                    f"{buf.dtype} to {v.shape} {v.dtype}")
             else:
-                buf.copy_(v)
-        self.metrics.index_copy_(0, i, torch.stack([m[k].float() for k in self.keys])[None])
+                _load(buf, v)
+        # on a mesh the scalars come back whole, the vectors laid out as the
+        # streak
+        self.metrics.index_copy_(0, i, torch.stack([_whole(m[k]).float()
+                                                    for k in self.keys])[None])
         for k, buf in self.vectors.items():
-            buf.index_copy_(0, i, m[k][None])
+            _local(buf).index_copy_(0, i, _local(pin_like(m[k], self.bufs[-1]))[None])
         i.add_(1)
 
     def _load(self, carry, xs, taus, A, K: int) -> None:
@@ -634,10 +687,10 @@ class _RoundSlot:
             if isinstance(buf, torch.Tensor):
                 _load(buf, x)
         for k, v in xs.items():
-            self.xs[k][:K].copy_(v)
+            _local(self.xs[k])[:K].copy_(_local(v))
         if taus is not None:
             for buf, t in zip(self.taus, taus):
-                buf[:K].copy_(t)
+                _local(buf)[:K].copy_(_local(t))
         _load(self.A, A)
         self.counter.zero_()
 
@@ -649,7 +702,7 @@ class _RoundSlot:
         """One eager warm-up round on a side stream (cuDNN's algorithm
         choice, the kernel library's load, the allocator), undone, then the
         capture of one round."""
-        dev, stats = self.A.device, self.stats
+        dev, stats = self.counter.device, self.stats
         gens = self._generators()
         saved = [g.get_state() for g in gens]
         counts0 = launch_counts()
@@ -695,7 +748,7 @@ class _RoundSlot:
         stats["warmup_launches"] = {k: v - counts0[k] for k, v in counts1.items() if v - counts0[k]}
         stats["captured_launches"] = {k: v - counts1[k] for k, v in counts2.items()
                                       if v - counts1[k]}
-        stats["buffer_bytes"] = sum(v.numel() * v.element_size() for v in
+        stats["buffer_bytes"] = sum(_local(v).numel() * v.element_size() for v in
                                     [*self.xs.values(), *(self.taus or ())])
         stats["replays"] = 0
         stats["captures"] = stats.get("captures", 0) + 1
@@ -710,7 +763,8 @@ class _RoundSlot:
             self.stats["replays"] += K
         metrics = self.metrics[:K].clone()
         out = {k: metrics[:, j] for j, k in enumerate(self.keys)}
-        out.update((k, v[:K].clone()) for k, v in self.vectors.items())
+        out.update((k, _rewrap(_local(v)[:K].clone(), v, (K, *v.shape[1:])))
+                   for k, v in self.vectors.items())
         return tree.unflatten(self.treedef, self.bufs), out
 
 
@@ -743,8 +797,9 @@ def make_async_round_fn(loss_fn: Callable, client_opt: Optimizer, server_opt: Op
         params, server_state, agg_state, metrics = base(
             params, server_state, agg_state, batches, tau_up, tau_dd, A)
         age = agg_state["age"].float()
-        metrics = dict(metrics, mean_age=torch.mean(age), max_age=torch.max(age),
-                       stale_frac=torch.mean((age > 0).float()))
+        # whole on a mesh, as the base round's metrics
+        metrics = dict(metrics, mean_age=_whole(torch.mean(age)), max_age=_whole(torch.max(age)),
+                       stale_frac=_whole(torch.mean((age > 0).float())))
         return params, server_state, agg_state, metrics
 
     round_fn.metric_keys = METRIC_KEYS + ASYNC_METRIC_KEYS

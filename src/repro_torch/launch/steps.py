@@ -10,8 +10,8 @@ The counterpart of ``repro.launch.steps.build_step`` (an input shape's
   batches, tau_up, tau_dd, A) -> (params, server_state, agg_state,
   metrics)`` from :mod:`repro_torch.fl.round`, the async round for an
   async strategy, the chunked engine (one round captured as a CUDA graph
-  and replayed) under ``scan_rounds``, the instrumented round under
-  ``telemetry``;
+  and replayed, on one device or on a mesh) under ``scan_rounds``, the
+  instrumented round under ``telemetry``;
 * ``prefill`` -> ``prefill_step(params, batch)``: the last-position logits
   ``(B, V)`` of the prompt.  On one device the forward runs with
   ``use_flash=True``: an encoder-decoder's and a hybrid's causal
@@ -100,7 +100,7 @@ def build_step(bundle, kind, mesh=None, *, n_clients: Optional[int] = None,
     it, each rank then running several clients), ``aggregation`` (a registry name
     or strategy), ``fl_mode`` (default: the config's), ``scan_rounds`` (the
     chunked engine, whose K is the leading axis of the batches and taus it
-    is given; one device only) and ``telemetry``.  ``cfg_override``
+    is given) and ``telemetry``.  ``cfg_override``
     replaces the arch's ``full()`` config in the reference's form.
     """
     if isinstance(bundle, str):
@@ -244,9 +244,6 @@ def _build_for_shape(arch_id: str, shape_name, mesh, *, n_clients, aggregation, 
     if mesh is None:
         C = 16 if n_clients is None else int(n_clients)
     else:
-        if scan_rounds:
-            raise ValueError("scan_rounds on a mesh is not ported: the chunked engine runs on "
-                             "one device (ROADMAP item 25)")
         C = mesh_clients(mesh) if n_clients is None else int(n_clients)
         if C % mesh_clients(mesh):
             raise ValueError(f"{C} clients do not split over the mesh's {mesh_clients(mesh)}")
@@ -278,8 +275,9 @@ def _build_for_shape(arch_id: str, shape_name, mesh, *, n_clients, aggregation, 
         else:
             make_fn = make_async_round_fn if is_async else make_round_fn
         # the gradients' layout matters only to the weighted modes, which
-        # make_round_fn alone runs (async strategies are per_client)
-        extra = {"grad_shardings": psh} if fsdp and make_fn is make_round_fn else {}
+        # the sync rounds alone run (async strategies are per_client)
+        extra = ({"grad_shardings": psh}
+                 if fsdp and make_fn in (make_round_fn, make_scan_round_fn) else {})
         round_fn = make_fn(bundle.loss_fn, sgd(CLIENT_LR, weight_decay=CLIENT_WD),
                            sgd_momentum(1.0, beta=SERVER_MOMENTUM), rc, telemetry=telemetry,
                            **extra)

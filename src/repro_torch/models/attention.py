@@ -20,8 +20,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.dist.layout import (fold_ready, grad_as, merge_ready, pin_like, shard_ways,
-                                      write_at)
+from repro_torch.dist.layout import (as_layout, attend_sequence_sharded, heads_layout,
+                                      is_dtensor, local_of, merge_ready, shard_ways, write_at)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ModelConfig, Params, apply_rope, dense_init, rms_head_norm
 
@@ -79,55 +79,33 @@ def causal_mask(tq: int, tk: int, *, offset: int = 0, window=None, device=None) 
 # ---------------------------------------------------------------------------
 
 
-def _sdpa(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
-    """q (B,T,H,hd), k/v (B,S,KV,hd) -> (B,T,H,hd).  f32 softmax, masked
-    logits at -1e30, output in q's dtype."""
+def _logits(q, k, softcap: Optional[float]) -> torch.Tensor:
+    """q (B,T,H,hd), k (B,S,KV,hd) -> the f32 logits (B,KV,G,T,S), scaled
+    and soft-capped."""
     B, T, H, hd = q.shape
     KV = k.shape[2]
-    G = H // KV
-    # on a mesh the batched matmuls fold (batch, heads): one of them sharded
-    q, k, v = (fold_ready(t, (0, 2)) for t in (q, k, v))
-    if shard_ways(q, 2) > 1:
-        return _sdpa_heads_first(q, k, v, mask, softcap)
-    qf = q.float().reshape(B, T, KV, G, hd)
+    qf = q.float().reshape(B, T, KV, H // KV, hd)
     logits = torch.einsum("btkgh,bskh->bkgts", qf, k.float()) / math.sqrt(hd)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+def _sdpa(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
+    """q (B,T,H,hd), k/v (B,S,KV,hd) -> (B,T,H,hd).  f32 softmax, masked
+    logits at -1e30, output in q's dtype.  On a mesh (DTensors) k and v
+    are laid out on q's heads (:func:`heads_layout`) and the same
+    arithmetic runs on each rank's local tensors."""
+    if is_dtensor(q):
+        q, k, v = heads_layout(q, k, v)
+        return as_layout(_sdpa(local_of(q), local_of(k), local_of(v), mask, softcap), q)
+    B, T, H, hd = q.shape
+    logits = _logits(q, k, softcap)
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
-    # on a mesh the gradient comes back sharded over the heads from the
-    # output projection: laid out as q before the (KV, G) split
-    return grad_as(out.reshape(B, T, H, hd).to(q.dtype), q)
-
-
-def _sdpa_heads_first(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
-    """:func:`_sdpa` for a DTensor ``q`` sharded over its heads: every query
-    head gets its own copy of its key and value head, laid out as ``q``,
-    and the heads lead every batched matmul (DTensor folds a sharded dim
-    into a matmul's batch only when it is the first), so that each device
-    attends its own heads."""
-    B, T, H, hd = q.shape
-    G = H // k.shape[2]
-    if G > 1:
-        k, v = (t.repeat_interleave(G, dim=2) for t in (k, v))
-    # the gradients leave contiguous: DTensor's decompositions view the
-    # local tensors they are given, and a permute's gradient is strided
-    q, k, v = (grad_as(t) for t in (q, pin_like(k, q), pin_like(v, q)))
-
-    def heads_first(t, *order):
-        return t.float().permute(*order).contiguous()
-
-    logits = torch.matmul(heads_first(q, 2, 0, 1, 3),
-                          heads_first(k, 2, 0, 3, 1)) / math.sqrt(hd)  # (H, B, T, S)
-    if softcap is not None:
-        logits = softcap * torch.tanh(logits / softcap)
-    if mask is not None:
-        logits = logits.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.matmul(w, heads_first(v, 2, 0, 1, 3))  # (H, B, T, hd)
-    return out.permute(1, 2, 0, 3).contiguous().to(q.dtype)
+    return out.reshape(B, T, H, hd).to(q.dtype)
 
 
 def _chunked_causal_sdpa(q, k, v, window, softcap: Optional[float], chunk: int) -> torch.Tensor:
@@ -200,6 +178,8 @@ def attention(
         k = rms_head_norm(k, params["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, kv_positions, cfg.rope_theta)
+    if is_dtensor(q):  # on a mesh: k and v on q's heads once, before any query block
+        q, k, v = heads_layout(q, k, v)
 
     is_self_causal = kv_source is None and causal
     if is_self_causal and static_window is not None and T > cfg.attn_chunk:
@@ -250,10 +230,23 @@ def decode_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, cache: P
     write_at(cache["k"], 1, pos, k_new[:, 0].to(cache["k"].dtype))
     write_at(cache["v"], 1, pos, v_new[:, 0].to(cache["v"].dtype))
 
-    idx = torch.arange(S, device=x.device)
-    valid = idx <= pos
-    if window is not None:
-        valid &= (pos - idx) < window
-    out = _sdpa(q, cache["k"], cache["v"], valid[None, :], cfg.attn_logit_softcap)
+    def valid(lo: int, n: int) -> torch.Tensor:
+        """Which of the cache slots ``lo .. lo + n - 1`` the token attends."""
+        idx = lo + torch.arange(n, device=x.device)
+        ok = idx <= pos
+        if window is not None:
+            ok &= (pos - idx) < window
+        return ok
+
+    if shard_ways(cache["k"], 1) > 1:
+        # a sequence-sharded cache: each rank attends its own slots, the
+        # softmax's max and sum reduced over the ranks
+        def scores(ql, kl, lo):
+            return _logits(ql, kl, cfg.attn_logit_softcap).masked_fill(
+                ~valid(lo, kl.shape[1]), NEG_INF)
+
+        out = attend_sequence_sharded(q, cache["k"], cache["v"], scores).to(q.dtype)
+    else:
+        out = _sdpa(q, cache["k"], cache["v"], valid(0, S)[None, :], cfg.attn_logit_softcap)
     y = torch.einsum("bthk,hkd->btd", merge_ready(out), merge_ready(params["wo"]))
     return y, cache

@@ -184,8 +184,10 @@ class AsyncRelayStrategy(AggregationStrategy):
             return self._aggregate_segments(deltas, spec, tau_up, tau_dd, A, state, ctx)
         # ravel once into the staging layout, advance the carry, then hand
         # the re-stacked effective tree to the inner scheme, whose own
-        # execution path still applies
-        stack = flatten.ravel_stacked(deltas, dtype=ctx.flat_dtype)
+        # execution path still applies; on a mesh (DTensor rows over the
+        # client axes) the ravel concatenates, as colrel's sharded branch does
+        ravel = flatten.ravel_stacked_concat if ctx.spmd_axes else flatten.ravel_stacked
+        stack = ravel(deltas, dtype=ctx.flat_dtype)
         _, age, staging = self.advance(state["age"], state["staging"], stack, tau_up, tau_dd)
         eff_tree = flatten.unravel_stacked(spec, self._effective(age, staging),
                                            dtype=torch.float32)

@@ -282,5 +282,10 @@ def test_build_step_without_a_mesh_is_the_one_device_step():
     assert in_sh is None and out_sh is None and callable(step) and len(args) == 4
     step, args, _, _ = steps.build_step("qwen3-0.6b", "train_4k", None, n_clients=8)
     assert args[3]["tokens"].shape[0] == 8 and step.donate_argnums == (0, 1, 2)
-    with pytest.raises(ValueError, match="scan_rounds on a mesh"):
-        steps.build_step("qwen3-0.6b", "train_4k", _meshes("4x2")[0], scan_rounds=2)
+    # the chunked engine builds on a mesh too: its K-leading args
+    step, args, in_sh, _ = steps.build_step("qwen3-0.6b", "train_4k", _meshes("4x2")[0],
+                                            scan_rounds=2)
+    assert args[3]["tokens"].shape[:2] == (2, 4) and args[4].shape == (2, 4)
+    assert step.metric_keys == ("loss", "delta_norm", "participation", "uplink_bits",
+                                "weight_sum") and step.donate_argnums == (0, 1, 2)
+    assert tuple(in_sh[4].spec) == (None, "data")

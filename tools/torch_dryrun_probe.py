@@ -10,9 +10,10 @@ reference's depth probes, which ``tools/ref_dryrun_probe.py`` prints.
 
 ``--layers 0`` is the arch's full depth.  ``--show-attention`` adds, a
 depth, the global shapes and placements of q, k and v where the first
-call of each attention function met them (after ``fold_ready`` for the
-heads-first form).  Fake tensors on a fake process group on the host: no
-card is needed.  One JSON line a depth, then one for the layer's share.
+call of each attention function met them (on a mesh the query blocks meet
+them laid out by ``heads_layout``; decode on a sequence-sharded cache
+meets them in ``attend_sequence_sharded``).  Fake tensors on a fake
+process group on the host: no card is needed.  One JSON line a depth, then one for the layer's share.
 """
 
 import argparse
@@ -62,7 +63,8 @@ def watch_attention() -> dict:
 
         setattr(att, name, first_call_recorded)
 
-    for name in ("_sdpa", "_sdpa_heads_first", "_chunked_causal_sdpa", "banded_causal_sdpa"):
+    for name in ("_sdpa", "_chunked_causal_sdpa", "banded_causal_sdpa",
+                 "attend_sequence_sharded"):
         wrap(name)
     return seen
 
